@@ -1,0 +1,557 @@
+"""Shared machinery of the Voxurf-family SDF renderers: the mask cache and
+the two-phase static-budget march.
+
+Port of ``esrnerf_tpu/models/voxurf_base.py``. The dense ``[N, S]`` sample
+grid is culled by a superset occupancy tap and compacted into a fixed
+``[K1]`` list (phase 1); the exact mask test, SDF sample, NeuS alpha and the
+transmittance scan run on that list through a dense scalar bridge; the
+alpha/weight-filtered survivors are compacted into the fixed ``[K2]`` head
+buffer (phase 2) and re-ordered by grid cell.
+
+Fixed-size compaction (``jnp.nonzero(size=K, fill_value=-1)`` in the
+reference) is :func:`fixed_size_nonzero`, a cumsum + scatter that keeps the
+ray-major order, the same ``n1``/``n2`` counts and the same overflow, and
+never syncs the host.
+
+Not ported yet: the SDF surface-band cull (``band_occ64``,
+``query_nearest64``; the fine stage sets ``surf_band_factor: 0``),
+``march_ray_slots``, ``sample_sdf_grad``, ``filter_rays_in_maskcache`` and
+``extract_geometry``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from esrnerf_tpu_torch.ops import grid as gridops
+from esrnerf_tpu_torch.ops import ray as rayops
+from esrnerf_tpu_torch.ops import render as renderops
+from esrnerf_tpu_torch.ops import scan as scanops
+from esrnerf_tpu_torch.ops import splat as splatops
+from esrnerf_tpu_torch.utils.device import resolve_device, small_const
+
+_PAD_KEY = 2**30
+
+
+def fixed_size_nonzero(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """Indices of the True entries of flat ``mask`` in ascending order,
+    truncated or padded with -1 to ``size`` (int64), without a host sync."""
+    flat = mask.reshape(-1)
+    pos = torch.cumsum(flat, 0) - 1
+    tgt = torch.where(flat & (pos < size), pos, torch.full_like(pos, size))
+    out = torch.full((size + 1,), -1, dtype=torch.int64, device=flat.device)
+    out.scatter_(0, tgt, torch.arange(flat.numel(), device=flat.device))
+    return out[:size]
+
+
+def _linspace(lo: float, hi: float, n: int, device) -> torch.Tensor:
+    """f32 ``linspace`` with the reference's arithmetic
+    ``lo * (1 - t) + hi * t``, ``t = i / (n - 1)``, endpoint exact."""
+    if n == 1:
+        return torch.tensor([lo], dtype=torch.float32, device=device)
+    t = torch.arange(n - 1, dtype=torch.float32, device=device) / float(n - 1)
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=device)
+    hi_t = torch.tensor(hi, dtype=torch.float32, device=device)
+    return torch.cat([lo_t * (1 - t) + hi_t * t, hi_t[None]])
+
+
+def _max_pool_same(x3: torch.Tensor, wins) -> torch.Tensor:
+    """Stride-1 max pool of ``[X,Y,Z]`` with odd per-axis windows and SAME
+    padding (the padding never wins: inputs here are >= 0)."""
+    pad = tuple(w // 2 for w in wins)
+    return F.max_pool3d(x3[None, None], tuple(wins), stride=1,
+                        padding=pad)[0, 0]
+
+
+class MaskCache:
+    """Frozen occupancy test from the previous stage's density grid:
+    max-pooled density, sampled with zero padding, thresholded in alpha
+    space. ``occ_sup`` is a binarized, dilated, 1-padded superset of the
+    exact test that one nearest tap per point can query
+    (:meth:`query_nearest`); ``occ64`` is that superset resampled onto a
+    padded 64^3 lattice."""
+
+    def __init__(self, density, xyz_min, xyz_max, act_shift, thres, occ_sup,
+                 occ64):
+        self.density = density  # [X,Y,Z,1] max-pooled
+        self.xyz_min = xyz_min
+        self.xyz_max = xyz_max
+        self.act_shift = act_shift
+        self.thres = thres
+        self.occ_sup = occ_sup  # [X+2,Y+2,Z+2] f32 0/1
+        self.occ64 = occ64  # [66,66,66]
+
+    @property
+    def device(self) -> torch.device:
+        return self.density.device
+
+    def query(self, xyz: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            d = gridops.grid_sample_3d(self.density, xyz, self.xyz_min,
+                                       self.xyz_max)[..., 0]
+            sp = torch.logaddexp(d + self.act_shift, torch.zeros_like(d))
+            alpha = 1.0 - torch.exp(-sp)
+        return alpha >= self.thres
+
+    def query_nearest(self, xyz: torch.Tensor) -> torch.Tensor:
+        """Conservative single-tap superset of :meth:`query`."""
+        return _nearest_tap(self.occ_sup, self.density.shape[:3],
+                            self.xyz_min, self.xyz_max, xyz)
+
+
+def _nearest_tap(table, size3, xyz_min, xyz_max, xyz):
+    X, Y, Z = size3
+    idx = gridops.normalized_index(xyz.reshape(-1, 3), xyz_min, xyz_max,
+                                   (X, Y, Z))
+    i = torch.round(idx).to(torch.int64) + 1  # pad offset
+    hi = small_const((X + 1, Y + 1, Z + 1), torch.int64, xyz.device)
+    i = torch.clamp(i, min=torch.zeros_like(hi), max=hi)
+    lin = (i[:, 0] * (Y + 2) + i[:, 1]) * (Z + 2) + i[:, 2]
+    occ = table.reshape(-1).index_select(0, lin) > 0.0
+    return occ.reshape(xyz.shape[:-1])
+
+
+def make_mask_cache(
+    density_xyzc: np.ndarray,
+    xyz_min,
+    xyz_max,
+    alpha_init: float,
+    thres: float,
+    ks: int,
+    device="cuda",
+) -> MaskCache:
+    """Mask cache from a ``[X,Y,Z,1]`` numpy density grid, on ``device``."""
+    dev = resolve_device(device)
+    dens = torch.as_tensor(np.asarray(density_xyzc, np.float32), device=dev)
+    pooled = gridops.max_pool_3d_same(dens, ks)
+    act_shift = float(np.log(1 / (1 - alpha_init) - 1))
+    # alpha >= thres  <=>  density >= d_tau (monotone); y <= 0 => everywhere
+    y = -np.log1p(-min(float(thres), 1.0 - 1e-12))
+    padded = F.pad(pooled[..., 0], (1, 1, 1, 1, 1, 1), value=-1e30)
+    if y <= 0:
+        occ_sup = torch.ones_like(padded)
+    else:
+        d_tau = float(np.log(np.expm1(y)) - act_shift)
+        occ_sup = (gridops.max_pool_3d_same(padded[..., None], 3)[..., 0]
+                   >= d_tau).to(torch.float32)
+    # conservative 64^3 resampling of occ_sup (see the reference)
+    X, Y, Z = pooled.shape[:3]
+    if max(X, Y, Z) > 254:
+        raise ValueError("mask-cache resolution exceeds the occ64 lattice")
+    LAT = 256
+
+    def lat_idx(n):
+        ll = (torch.arange(LAT, dtype=torch.float32, device=dev) + 0.5) \
+            / LAT * (n - 1)
+        return torch.clamp(torch.round(ll).to(torch.int64) + 1, 0, n + 1)
+
+    o = occ_sup[lat_idx(X)][:, lat_idx(Y)][:, :, lat_idx(Z)]
+    o = F.max_pool3d(o[None, None], 4, stride=4)[0, 0]
+    o = gridops.max_pool_3d_same(o[..., None], 3)[..., 0]
+    occ64 = F.pad(o, (1, 1, 1, 1, 1, 1))
+    return MaskCache(
+        density=pooled,
+        xyz_min=torch.as_tensor(np.asarray(xyz_min, np.float32), device=dev),
+        xyz_max=torch.as_tensor(np.asarray(xyz_max, np.float32), device=dev),
+        act_shift=act_shift,
+        thres=float(thres),
+        occ_sup=occ_sup,
+        occ64=occ64,
+    )
+
+
+class March(NamedTuple):
+    """Compacted march state; padded slots have weight 0 and ray_id N."""
+
+    pts: torch.Tensor        # [K, 3]
+    ray_id: torch.Tensor     # [K] in [0, N]; N = padding
+    step_id: torch.Tensor    # [K] sample index along the ray
+    weights: torch.Tensor    # [K]
+    alpha: torch.Tensor      # [K]
+    sdf: torch.Tensor        # [K]
+    pad: torch.Tensor        # [K] bool, True = padding slot
+    alphainv_last: torch.Tensor  # [N]
+    cum_weights: torch.Tensor    # [N]
+    n_rays: int
+    overflow: torch.Tensor   # [] fraction of surviving samples dropped
+    n_valid: torch.Tensor    # [] int32 count of non-pad rows (a tail)
+    k1_frac: torch.Tensor    # [] phase-1 budget utilization
+    k2_frac: torch.Tensor    # [] phase-2 budget utilization
+
+
+class VoxurfGeometry:
+    """Static geometry + the dense -> compact march. The device is the
+    mask cache's."""
+
+    def __init__(self, cfg, near, far, xyz_min, xyz_max, mask_cache):
+        self.cfg = cfg
+        self.near = float(near)
+        self.far = float(far)
+        self.xyz_min = np.asarray(xyz_min, np.float32)
+        self.xyz_max = np.asarray(xyz_max, np.float32)
+        self.mask_cache = mask_cache
+        self.device = mask_cache.device
+        self.xyz_min_t = torch.as_tensor(self.xyz_min, device=self.device)
+        self.xyz_max_t = torch.as_tensor(self.xyz_max, device=self.device)
+
+        m = cfg.app.model
+        self.stepsize = float(m["stepsize"])
+        self.num_voxels = int(
+            m.get("num_voxels") or cfg.app["trainer"].get("num_voxels") or 4096
+        )
+        self.set_grid_resolution(self.num_voxels)
+        self.points_per_ray = int(m.get("points_budget_per_ray", 64))
+        self.points_per_ray_masked = int(
+            m.get("points_budget_masked_per_ray", 4 * self.points_per_ray)
+        )
+        self.surf_band_factor = float(m.get("surf_band_factor", 0.0))
+        self.phase1_block = int(m.get("phase1_block", 8))
+        self._rebuild_mask_blk()
+
+    def set_grid_resolution(self, num_voxels: int) -> None:
+        extent = self.xyz_max - self.xyz_min
+        self.num_voxels = num_voxels
+        self.voxel_size = float((extent.prod() / num_voxels) ** (1 / 3))
+        self.world_size = tuple(
+            int(x) for x in (extent / self.voxel_size).astype(np.int64)
+        )
+        diag = float(np.linalg.norm(np.asarray(self.world_size) + 1))
+        self.n_samples = int(diag / self.stepsize) + 1
+        if hasattr(self, "phase1_block"):
+            self._rebuild_mask_blk()
+
+    @property
+    def stepdist(self) -> float:
+        return self.stepsize * self.voxel_size
+
+    def _rebuild_mask_blk(self) -> None:
+        """Block-dilated ``occ_sup`` for the block-granular phase 1: a block
+        sample lies within ``halfspan`` of its centre along the ray, so its
+        rounded occupancy cell differs from the centre's by at most
+        ``floor(halfspan / cell) + 1`` per axis."""
+        self._mask_sup_blk = None
+        if self.phase1_block <= 1 or self.surf_band_factor > 0:
+            return
+        mc = self.mask_cache
+        X, Y, Z = mc.density.shape[:3]
+        ext = mc.xyz_max.cpu().numpy() - mc.xyz_min.cpu().numpy()
+        halfspan = (self.phase1_block - 1) / 2 * self.stepdist
+        win = tuple(
+            2 * (int(np.floor(halfspan * (n - 1) / e)) + 1) + 1
+            for n, e in zip((X, Y, Z), ext)
+        )
+        self._mask_sup_blk = _max_pool_same(mc.occ_sup, win)
+
+    def _query_nearest_blk(self, xyz: torch.Tensor) -> torch.Tensor:
+        """Nearest tap on the block-dilated table (block-centre test)."""
+        mc = self.mask_cache
+        return _nearest_tap(self._mask_sup_blk, mc.density.shape[:3],
+                            mc.xyz_min, mc.xyz_max, xyz)
+
+    # -------------------------------------------------------------- helpers
+
+    def grid_xyz(self):
+        """[X,Y,Z,3] world coordinates of the voxel centres."""
+        axes = [_linspace(float(self.xyz_min[i]), float(self.xyz_max[i]), n,
+                          self.device) for i, n in enumerate(self.world_size)]
+        return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+
+    def nonempty_mask(self) -> torch.Tensor:
+        """[X,Y,Z] bool: voxels inside the previous stage's occupancy."""
+        return self.mask_cache.query(self.grid_xyz())
+
+    def sphere_sdf_init(self) -> torch.Tensor:
+        """Unit-sphere SDF, voxels outside the nonempty mask pushed to +1."""
+        X, Y, Z = self.world_size
+        x, y, z = np.mgrid[-1:1:X * 1j, -1:1:Y * 1j, -1:1:Z * 1j]
+        sdf = ((x**2 + y**2 + z**2) ** 0.5 - 1).astype(np.float32)[..., None]
+        sdf = torch.as_tensor(sdf, device=self.device)
+        ne = self.nonempty_mask()[..., None]
+        return torch.where(ne, sdf, torch.ones_like(sdf))
+
+    def sample_dense(self, rays_o, rays_d) -> rayops.RaySamples:
+        """Dense sampling with far = 1e9 (rays march the whole bbox)."""
+        return rayops.sample_rays_dense(
+            rays_o, rays_d, self.xyz_min_t, self.xyz_max_t, self.near, 1e9,
+            self.stepdist, self.n_samples,
+        )
+
+    def sdf_gradient(self, sdf_grid: torch.Tensor) -> torch.Tensor:
+        """Central-difference gradient, zero at borders: [X,Y,Z,1] ->
+        [X,Y,Z,3]."""
+        g = sdf_grid[..., 0]
+        s = 2 * self.voxel_size
+        gx = F.pad((g[2:] - g[:-2]) / s, (0, 0, 0, 0, 1, 1))
+        gy = F.pad((g[:, 2:] - g[:, :-2]) / s, (0, 0, 1, 1))
+        gz = F.pad((g[:, :, 2:] - g[:, :, :-2]) / s, (1, 1))
+        return torch.stack([gx, gy, gz], dim=-1)
+
+    def sample_grid(self, grid: torch.Tensor, pts: torch.Tensor):
+        return gridops.grid_sample_3d(grid, pts, self.xyz_min_t,
+                                      self.xyz_max_t)
+
+    def sample_grids_sorted(self, grids, pts: torch.Tensor, n_valid=None):
+        """Several same-resolution grids at the cell-sorted march points
+        through one gather; pad chunks read zeros."""
+        return splatops.sorted_trilinear_sample_multi(
+            tuple(grids), pts.reshape(-1, 3), self.xyz_min_t,
+            self.xyz_max_t, n_valid,
+        )
+
+    # ------------------------------------------------------------ the march
+
+    def march(
+        self,
+        sdf_grid_smooth: torch.Tensor,
+        rays_o: torch.Tensor,
+        rays_d: torch.Tensor,
+        viewdirs: torch.Tensor,
+        s_val,
+        fastcolor_thres: float,
+        neus_alpha: str = "interp",
+        style: str = "coarse",
+    ) -> March:
+        """Two-phase NeuS march: early compaction, then the scans.
+
+        style="coarse": maskcache skip, NeuS alpha, scan, ``weights >
+        fastcolor_thres`` filter, re-scan on the survivors. style="fine": an
+        ``alpha > fastcolor_thres`` pre-filter before the scan, then a
+        ``weights > fastcolor_thres`` filter without re-scan.
+        """
+        if neus_alpha != "interp":
+            raise NotImplementedError(
+                "march: only neus_alpha='interp' is ported (the fine stage's)")
+        if self.surf_band_factor > 0:
+            raise NotImplementedError(
+                "march: the surface-band cull (surf_band_factor > 0) is not "
+                "ported yet")
+        if style not in ("coarse", "fine"):
+            raise ValueError(f"unknown march style '{style}'")
+        dev = rays_o.device
+        N = rays_o.shape[0]
+        S = self.n_samples
+        K2 = N * self.points_per_ray
+        K1 = min(N * self.points_per_ray_masked, N * S)
+
+        # block-granular phase 1: blocks of BLK samples are tested once at
+        # their centre against the block-dilated mask, surviving blocks are
+        # compacted whole, and the exact per-sample test runs on the K1
+        # list -- the survivor set equals the per-sample path's
+        BLK = self.phase1_block if self._mask_sup_blk is not None else 1
+        SB = -(-S // BLK)
+        Sp = SB * BLK  # dense-bridge row stride
+        K1 = min(-(-K1 // BLK) * BLK, N * Sp)
+
+        mn, mx = self.xyz_min_t, self.xyz_max_t
+        t_min, t_max = rayops.ray_aabb(rays_o, rays_d, mn, mx, self.near, 1e9)
+        rnorm = rayops.ray_norm(rays_d)
+        n_steps = torch.clamp(
+            torch.ceil((t_max - t_min) * rnorm / self.stepdist), min=1.0)
+
+        if BLK > 1:
+            sbc = (torch.arange(SB, dtype=rays_o.dtype, device=dev) * BLK
+                   + (BLK - 1) / 2)
+            start = rays_o + rays_d * t_min[:, None]
+            dirn = rays_d / rnorm[:, None]
+            cpts = (start[:, None, :]
+                    + dirn[:, None, :] * (self.stepdist * sbc)[None, :, None])
+            blk_in = (sbc[None, :] - (BLK - 1) / 2) < n_steps[:, None]
+            sup_blk = blk_in & self._query_nearest_blk(cpts)  # [N, SB]
+
+            # ---- phase-1 compaction at block granularity (ray-major)
+            n1 = sup_blk.sum() * BLK  # blocks enter whole
+            idxb = fixed_size_nonzero(sup_blk, K1 // BLK)
+            padb = idxb < 0
+            idxbc = torch.clamp(idxb, min=0)
+            rayb = torch.where(padb, torch.full_like(idxbc, N), idxbc // SB)
+            jj = torch.arange(BLK, device=dev)
+            ray1 = rayb.repeat_interleave(BLK)
+            step1 = ((idxbc % SB) * BLK)[:, None] + jj[None, :]
+            step1 = torch.where(padb[:, None], torch.zeros_like(step1),
+                                step1).reshape(-1)
+            pad1 = padb.repeat_interleave(BLK)
+        else:
+            rs = self.sample_dense(rays_o, rays_d)
+            sup = rs.valid & self.mask_cache.query_nearest(rs.pts)
+
+            # ---- phase-1 compaction (order-preserving => ray-major)
+            n1 = sup.sum()
+            idx1 = fixed_size_nonzero(sup, K1)
+            pad1 = idx1 < 0
+            idx1c = torch.clamp(idx1, min=0)
+            ray1 = torch.where(pad1, torch.full_like(idx1c, N), idx1c // S)
+            step1 = torch.where(pad1, torch.zeros_like(idx1c), idx1c % S)
+
+        # compacted points recomputed from (ray, step), the same float
+        # expression as sample_rays_dense: p = start + dirn * stepdist * s
+        r1c = torch.clamp(ray1, max=N - 1)
+        ray_pack = torch.cat(
+            [rays_o + rays_d * t_min[:, None], rays_d / rnorm[:, None],
+             n_steps[:, None]], -1
+        )  # [N, 7] (start, dirn, count)
+        rp = ray_pack.index_select(0, r1c)
+        sd = self.stepdist * step1.to(rays_o.dtype)
+        pts1 = torch.stack(
+            [rp[:, 0] + rp[:, 3] * sd,
+             rp[:, 1] + rp[:, 4] * sd,
+             rp[:, 2] + rp[:, 5] * sd], -1)
+
+        if BLK > 1:
+            # exact per-sample re-test on the compacted list
+            in_cnt = step1.to(rays_o.dtype) < rp[:, 6]
+            in_bb = ((pts1 >= mn) & (pts1 <= mx)).all(-1)
+            occ_ok = self.mask_cache.query_nearest(pts1)
+            samp_ok = ~pad1 & in_cnt & in_bb & occ_ok
+        else:
+            samp_ok = ~pad1
+
+        exact = samp_ok & self.mask_cache.query(pts1)
+        sdf1 = self.sample_grid(sdf_grid_smooth, pts1)[..., 0]  # [K1]
+
+        # ---- dense scalar bridge: scatter the compacted scalars back to
+        # their (ray, step) slot; lin is ascending and pads land in row N
+        lin = torch.clamp(ray1, max=N) * Sp + step1
+        dsize = (N + 1) * Sp
+        nv1 = torch.clamp(n1, max=K1).to(torch.int32)
+
+        def to_dense(x):
+            full = splatops.sorted_scatter_1d(lin, x, dsize, n_valid=nv1)
+            return full.reshape(N + 1, Sp)[:N]
+
+        sdf_d = to_dense(sdf1)
+        val_d = to_dense(exact)
+        alpha_d = renderops.neus_alpha_interp(sdf_d, val_d, s_val)
+
+        def gather_back(cols):
+            dense = torch.stack(cols, -1).reshape(-1, len(cols))
+            dense = torch.cat([dense, dense.new_zeros((Sp, len(cols)))])
+            return splatops.sorted_gather_rows(dense, lin, n_valid=nv1)
+
+        zero_d = torch.zeros_like(alpha_d)
+        if style == "fine":
+            pre_d = alpha_d > fastcolor_thres  # alpha is 0 at invalid slots
+            a1_d = torch.where(pre_d, alpha_d, zero_d)
+            w1_d, alphainv_last = scanops.alpha2weights_scan(
+                a1_d, renderops.EARLY_EXIT_T)
+            flat2 = gather_back([a1_d, w1_d])
+            keep = (flat2[:, 1] > fastcolor_thres) & ~pad1
+            zero = torch.zeros_like(flat2[:, 0])
+            alpha2 = torch.where(keep, flat2[:, 0], zero)
+            weights = torch.where(keep, flat2[:, 1], zero)
+        else:
+            w1_d, _ = scanops.alpha2weights_scan(alpha_d,
+                                                 renderops.EARLY_EXIT_T)
+            keep_d = w1_d > fastcolor_thres
+            alpha2_d = torch.where(keep_d, alpha_d, zero_d)
+            w_d, alphainv_last = scanops.alpha2weights_scan(
+                alpha2_d, renderops.EARLY_EXIT_T)
+            flat3 = gather_back([alpha_d, w1_d, w_d])
+            keep = (flat3[:, 1] > fastcolor_thres) & ~pad1
+            alpha2 = torch.where(keep, flat3[:, 0], torch.zeros_like(flat3[:, 0]))
+            weights = flat3[:, 2]
+
+        # ---- phase-2 compaction to the static K2 head budget
+        n2 = keep.sum()
+        idx2 = fixed_size_nonzero(keep, K2)
+        pad = idx2 < 0
+        # pads clamp to the LAST row so idx2c stays ascending
+        idx2c = torch.where(pad, torch.full_like(idx2, K1 - 1), idx2)
+
+        pack1 = torch.cat(
+            [pts1, weights[:, None], alpha2[:, None], sdf1[:, None]], -1
+        )  # [K1, 6]
+        nv2 = torch.clamp(n2, max=K2).to(torch.int32)
+        pack2 = splatops.sorted_gather_rows(pack1, idx2c, n_valid=nv2)
+        lin2 = lin.index_select(0, idx2c)
+
+        # re-order the compacted points by grid cell (every consumer is
+        # order-agnostic; the cell order gives the gather/splat locality)
+        X, Y, Z = self.world_size
+        ind = gridops.normalized_index(pack2[:, 0:3].detach(), mn, mx,
+                                       (X, Y, Z))
+        i0 = torch.floor(ind).to(torch.int64)
+        cell = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
+        key = torch.where(pad, torch.full_like(cell, _PAD_KEY), cell)
+        perm = torch.argsort(key, stable=True)
+        inv_perm = torch.empty_like(perm).scatter_(
+            0, perm, torch.arange(perm.numel(), device=dev))
+        pack2 = splatops.permute_rows(pack2, perm, inv_perm)
+        lin2 = lin2.index_select(0, perm)
+        pad = pad.index_select(0, perm)
+
+        pts_c = pack2[:, 0:3]
+        # pad rows collapse onto the last real (max-cell) row, so the base
+        # cells stay ascending and the pad tail is one cell
+        last_idx = torch.clamp(nv2.to(torch.int64) - 1, min=0).reshape(1)
+        last_real = pts_c.index_select(0, last_idx)
+        pts_c = torch.where(pad[:, None], last_real, pts_c)
+        zero = torch.zeros_like(pack2[:, 3])
+        w_c = torch.where(pad, zero, pack2[:, 3])
+        a_c = torch.where(pad, zero, pack2[:, 4])
+        sdf_c = torch.where(pad, zero, pack2[:, 5])
+        ray_c = torch.where(pad, torch.full_like(lin2, N), lin2 // Sp)
+        step_c = torch.where(pad, torch.zeros_like(lin2), lin2 % Sp)
+
+        cum_weights = torch.zeros(N + 1, dtype=w_c.dtype, device=dev) \
+            .index_add(0, ray_c, w_c)[:N]
+        n1f, n2f = n1.to(torch.float32), n2.to(torch.float32)
+        overflow = torch.maximum(
+            torch.clamp(n1f - K1, min=0) / torch.clamp(n1f, min=1),
+            torch.clamp(n2f - K2, min=0) / torch.clamp(n2f, min=1),
+        )
+        return March(
+            pts=pts_c, ray_id=ray_c, step_id=step_c, weights=w_c, alpha=a_c,
+            sdf=sdf_c, pad=pad, alphainv_last=alphainv_last,
+            cum_weights=cum_weights, n_rays=N, overflow=overflow,
+            n_valid=nv2, k1_frac=n1f / K1, k2_frac=n2f / K2,
+        )
+
+    def segment_to_rays(self, march: March, values: torch.Tensor):
+        """Weighted per-ray sum of per-point values (``index_add_``; on
+        CUDA its atomics sum in no fixed order)."""
+        w = march.weights[:, None] if values.ndim == 2 else march.weights
+        out = torch.zeros((march.n_rays + 1, *values.shape[1:]),
+                          dtype=values.dtype, device=values.device)
+        return out.index_add(0, march.ray_id, w * values)[: march.n_rays]
+
+    # ------------------------------------- multi-scale SDF features/normals
+
+    def sample_sdfeat_grad_normal(self, sdf_grid, pts, displace,
+                                  n_valid=None):
+        """Displaced 6-neighbour SDF taps, finite-difference gradients and
+        normalized normals: features ``[M, 6*D]`` (-z,+z,-y,+y,-x,+x per
+        displacement), gradients ``[M, 3*D]`` in (z,y,x) order, normals
+        ``[M, 3*D]``."""
+        displace_t = tuple(float(d) for d in np.asarray(displace).reshape(-1))
+        D = len(displace_t)
+        X, Y, Z = sdf_grid.shape[:3]
+        mn, mx = self.xyz_min_t, self.xyz_max_t
+
+        feat = gridops.displaced_taps(sdf_grid, pts, mn, mx, displace_t,
+                                      n_valid)  # [M, 6, D]
+
+        # actual (clamped) index distance along the displaced axis
+        ind = gridops.normalized_index(pts, mn, mx, (X, Y, Z))
+        dd = small_const(displace_t, torch.float32, pts.device)
+        axes = torch.stack([ind[:, 2], ind[:, 1], ind[:, 0]], -1)  # (z,y,x)
+        hi = small_const((Z - 1.0, Y - 1.0, X - 1.0), torch.float32,
+                         pts.device)
+        q_plus = torch.minimum(torch.clamp(axes[..., None] + dd, min=0.0),
+                               hi[:, None])
+        q_minus = torch.minimum(torch.clamp(axes[..., None] - dd, min=0.0),
+                                hi[:, None])
+        diff = q_plus - q_minus  # [M, 3, D]
+
+        feat_diff = feat[:, 1::2] - feat[:, 0::2]
+        grad = feat_diff / diff / self.voxel_size
+        # vector_norm's gradient is 0 at a zero vector (pad-chunk rows)
+        normal = grad / torch.clamp(
+            torch.linalg.vector_norm(grad, dim=1, keepdim=True), min=1e-12)
+
+        M = pts.shape[0]
+        return (feat.reshape(M, 6 * D), grad.reshape(M, 3 * D),
+                normal.reshape(M, 3 * D))

@@ -1,0 +1,203 @@
+"""VoxurfF: the fine-stage HDR renderer with a learnable tone-mapper.
+
+Port of ``esrnerf_tpu/models/voxurff.py`` (training path). The radiance
+heads output softplus linear HDR RGB; the tone-mapper maps PE-encoded
+linear RGB to sigmoid sRGB; features add the per-point SDF value, the
+multi-scale 6-neighbour SDF taps and per-displacement normals; emissive-on
+rays add the detached off head.
+
+Parameters are a plain dict with the reference's group names: ``sdf``,
+``off_color``, ``emo_color`` (``[X,Y,Z,C]`` grids) and ``off_rgbnet``,
+``emo_rgbnet``, ``tonemapper`` (dicts of ``w{i}`` ``[in,out]`` / ``b{i}``).
+
+Not ported yet: ``forward_evaluate``, ``scale_volume_grid``,
+``load_coarse_sdf`` and ``extract_geometry``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from esrnerf_tpu_torch.models import mlp as mlpops
+from esrnerf_tpu_torch.models.voxurf_base import MaskCache, VoxurfGeometry
+from esrnerf_tpu_torch.ops import grid as gridops
+from esrnerf_tpu_torch.ops import tv as tvops
+
+Params = Dict[str, object]
+
+
+class VoxurfF:
+    """The renderer lives on its mask cache's device."""
+
+    def __init__(
+        self, cfg, near, far, xyz_min, xyz_max, mask_cache: MaskCache,
+        s_val: float, num_voxels: int, mask_meta: dict | None = None,
+    ):
+        self.cfg = cfg
+        self.mask_meta = mask_meta or {}
+        m = cfg.app.model
+        self.mlp_dtype = mlpops.mlp_dtype_from_cfg(cfg)
+        self.geo = VoxurfGeometry(cfg, near, far, xyz_min, xyz_max, mask_cache)
+        self.geo.set_grid_resolution(int(num_voxels))
+        self.device = self.geo.device
+        self.s_val = float(s_val)
+
+        self.fastcolor_thres = float(m["fastcolor_thres"])
+        self.color_dim = int(m["color_dim"])
+        self.rgbnet_width = int(m["rgbnet_width"])
+        self.rgbnet_depth = int(m["rgbnet_depth"])
+        self.tonemap_width = int(m["tonemap_width"])
+        self.tonemap_depth = int(m["tonemap_depth"])
+        self.posbase_pe = int(m["posbase_pe"])
+        self.viewbase_pe = int(m["viewbase_pe"])
+        self.colorbase_pe = int(m["colorbase_pe"])
+        self.grad_feat = np.asarray(m["grad_feat"], np.float32)
+        self.neus_alpha = str(m["neus_alpha"])
+
+        self.tv_smooth_kernel = gridops.make_gradient_smooth_kernel_3d()
+        self._nonempty = self.geo.nonempty_mask()
+
+        D = len(self.grad_feat)
+        self.dim0 = (
+            (3 + 3 * self.posbase_pe * 2)
+            + (3 * self.viewbase_pe * 3)
+            + self.color_dim
+            + D * 3      # multi-scale normals
+            + D * 6      # multi-scale neighbour taps
+            + 1          # sdf value
+        )
+        self.tonemap_dim0 = 3 + 3 * self.colorbase_pe * 2
+        dev = self.device
+        self._posfreq = torch.tensor([2.0**i for i in range(self.posbase_pe)],
+                                     device=dev)
+        self._viewfreq = torch.tensor(
+            [2.0**i for i in range(self.viewbase_pe)], device=dev)
+        self._colorfreq = torch.tensor(
+            [2.0**i for i in range(self.colorbase_pe)], device=dev)
+
+    # ------------------------------------------------------------------ init
+
+    def init_params(self, generator: torch.Generator) -> Params:
+        """Sphere SDF, zero color grids, heads drawn from ``generator``."""
+        X, Y, Z = self.geo.world_size
+        dims = [self.dim0] + [self.rgbnet_width] * (self.rgbnet_depth - 1) + [3]
+        tm_dims = ([self.tonemap_dim0]
+                   + [self.tonemap_width] * (self.tonemap_depth - 1) + [3])
+        dev = self.device
+        return {
+            "sdf": self.geo.sphere_sdf_init(),
+            "off_color": torch.zeros((X, Y, Z, self.color_dim), device=dev),
+            "emo_color": torch.zeros((X, Y, Z, self.color_dim), device=dev),
+            "off_rgbnet": mlpops.init_mlp(generator, dims, dev),
+            "emo_rgbnet": mlpops.init_mlp(generator, dims, dev),
+            "tonemapper": mlpops.init_mlp(generator, tm_dims, dev),
+        }
+
+    # -------------------------------------------------------------- features
+
+    def _features(self, params, pts, viewdirs_per_pt, sdf, n_valid=None):
+        geo = self.geo
+        feat6, _, normals = geo.sample_sdfeat_grad_normal(
+            params["sdf"], pts, self.grad_feat, n_valid
+        )
+        xyz_n = (pts - geo.xyz_min_t) / (geo.xyz_max_t - geo.xyz_min_t)
+        xyz_emb = (xyz_n[..., None] * self._posfreq).reshape(
+            *xyz_n.shape[:-1], -1)
+        view_emb = (viewdirs_per_pt[..., None] * self._viewfreq).reshape(
+            *viewdirs_per_pt.shape[:-1], -1)
+        return torch.cat(
+            [
+                xyz_n, torch.sin(xyz_emb), torch.cos(xyz_emb),
+                view_emb, torch.sin(view_emb), torch.cos(view_emb),
+                sdf[:, None], feat6, normals,
+            ],
+            dim=-1,
+        )
+
+    def apply_tonemapper(self, params: Params, lin_rgb: torch.Tensor):
+        """PE-encode linear RGB -> sigmoid sRGB."""
+        emb = (lin_rgb[..., None] * self._colorfreq).reshape(
+            *lin_rgb.shape[:-1], -1)
+        feat = torch.cat([lin_rgb, torch.sin(emb), torch.cos(emb)], -1)
+        return torch.sigmoid(mlpops.apply_mlp(
+            params["tonemapper"], feat, compute_dtype=self.mlp_dtype))
+
+    def _radiance(self, params, head: str, feat, grid_val):
+        """Softplus HDR radiance of ``head`` from its color-grid samples
+        ``grid_val`` and the shared features."""
+        x = torch.cat([grid_val, feat], -1)
+        return F.softplus(mlpops.apply_mlp(
+            params[f"{head}_rgbnet"], x, compute_dtype=self.mlp_dtype))
+
+    # -------------------------------------------------------------- forwards
+
+    def forward_training(self, params: Params, rays_o, rays_d, viewdirs,
+                         em_modes, s_val) -> Dict[str, torch.Tensor]:
+        geo = self.geo
+        with record_function("fine/march"):
+            m = geo.march(
+                params["sdf"], rays_o, rays_d, viewdirs, s_val,
+                self.fastcolor_thres, self.neus_alpha, style="fine",
+            )
+        rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
+        with record_function("fine/features"):
+            feat = self._features(params, m.pts, viewdirs.index_select(0, rid),
+                                  m.sdf, n_valid=m.n_valid)
+        on_mask = ((em_modes.index_select(0, rid) == 1) & ~m.pad)[:, None]
+
+        with record_function("fine/heads"):
+            off_gv, emo_gv = geo.sample_grids_sorted(
+                (params["off_color"], params["emo_color"]), m.pts, m.n_valid
+            )
+            off = self._radiance(params, "off", feat, off_gv)
+            emo = self._radiance(params, "emo", feat, emo_gv)
+            lin_rgb = torch.where(on_mask, emo + off.detach(), off)
+            rgb = self.apply_tonemapper(params, lin_rgb)
+            rgb_m = geo.segment_to_rays(m, rgb)
+            lin_m = geo.segment_to_rays(m, lin_rgb)
+
+        return {
+            "etc/alphainv_cum": m.alphainv_last,
+            "etc/white_bg": m.alphainv_last[..., None],
+            "srgb/rgb": rgb_m,
+            "lin/rgb": lin_m,
+            "etc/overflow": m.overflow,
+            "etc/k1_frac": m.k1_frac,
+            "etc/k2_frac": m.k2_frac,
+        }
+
+    # ---------------------------------------------------------------- losses
+
+    def density_total_variation(self, params: Params, smooth_grad_tv):
+        """Smooth-gradient TV: masked mean squared gap between the SDF
+        gradient and its (detached) smoothed version."""
+        grad = self.geo.sdf_gradient(params["sdf"])
+        with torch.no_grad():
+            smoothed = gridops.conv3d_replicate(grad, self.tv_smooth_kernel)
+        err = (smoothed - grad) ** 2
+        mask = self._nonempty[..., None].expand(err.shape)
+        denom = torch.clamp(mask.sum(), min=1)
+        return (torch.where(mask, err, torch.zeros_like(err)).sum() / denom
+                ) * smooth_grad_tv
+
+    def sdf_tv_grad(self, sdf: torch.Tensor, weight, sparse_grad=None):
+        """Gradient term of the SDF TV: per-axis weight scaled by
+        max(world) / 128."""
+        w = weight * max(self.geo.world_size) / 128.0
+        return tvops.tv_grad(sdf, w, w, w, sparse_grad=sparse_grad)
+
+    def export_meta(self) -> dict:
+        return {
+            "near": self.geo.near,
+            "far": self.geo.far,
+            "xyz_min": self.geo.xyz_min,
+            "xyz_max": self.geo.xyz_max,
+            "s_val": self.s_val,
+            "num_voxels": self.geo.num_voxels,
+            **self.mask_meta,
+        }

@@ -1,0 +1,266 @@
+"""Build, load, launch and count the port's hand-written CUDA kernels.
+
+Each source under ``esrnerf_tpu_torch/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into its own shared library with a plain C interface and loaded
+with :mod:`ctypes`. Building happens at first use (or through :func:`build`),
+one ``nvcc`` process per source, all started together, into the git-ignored
+``esrnerf_tpu_torch/build/``. A library's file name carries a hash of its
+sources and flags, so an edited source is never served by a stale library.
+Importing this module builds nothing and needs neither ``nvcc`` nor a GPU.
+
+The launch helpers take CUDA tensors only: they run on PyTorch's current
+stream, allocate nothing, never synchronise, and raise if the launch was
+refused. :data:`launches` counts every launch by kernel name, so a run can
+show which kernels the main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Optional, Sequence
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+# library -> source file; each is built into its own .so
+SOURCES = {"scan": "scan.cu", "splat": "splat.cu", "gather": "gather.cu"}
+_HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# kernel name -> launches since the last reset_launches()
+launches: Dict[str, int] = {
+    "scan_fwd": 0, "scan_bwd": 0, "splat": 0, "gather_weighted": 0,
+    "gather_raw": 0,
+}
+
+_vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_LL_P = ctypes.POINTER(ctypes.c_longlong)
+_SIGNATURES = {
+    "scan": {
+        "esr_scan_fwd": [_vp, _vp, _vp, _vp, _i, _i, _f, _vp],
+        "esr_scan_bwd": [_vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
+    },
+    "splat": {
+        "esr_splat": [_vp, _vp, _LL_P, _i, _i, _i, _ll, _vp, _vp, _vp],
+    },
+    "gather": {
+        "esr_gather_weighted": [_vp, _ll, _i, _vp, _vp, _LL_P, _i, _i, _vp,
+                                _vp, _vp],
+        "esr_gather_raw": [_vp, _ll, _vp, _LL_P, _i, _i, _vp, _vp, _vp],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+        "kernels are built from esrnerf_tpu_torch/csrc at first use"
+    )
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name], *_HEADERS):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def build() -> Dict[str, str]:
+    """Compile the libraries not built yet, one ``nvcc`` per source, all in
+    parallel. Returns ``{name: compiler report}`` (``-Xptxas -v``: registers,
+    shared memory and spills per kernel) for those compiled now. Raises
+    with the compiler's output if any build fails."""
+    todo = [n for n in SOURCES if not os.path.exists(_lib_path(n))]
+    if not todo:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        out = _lib_path(n)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    reports, failed = {}, []
+    for n, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        reports[n] = log
+        if p.returncode != 0:
+            failed.append(f"--- {SOURCES[n]} (nvcc exit {p.returncode})\n{log}")
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        else:
+            os.replace(tmp, out)  # atomic: no process loads half a file
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    if name not in _libs:
+        build()
+        so = ctypes.CDLL(_lib_path(name))
+        for fn, args in _SIGNATURES[name].items():
+            getattr(so, fn).argtypes = args
+            getattr(so, fn).restype = ctypes.c_int
+        so.esr_error_string.argtypes = [ctypes.c_int]
+        so.esr_error_string.restype = ctypes.c_char_p
+        _libs[name] = so
+    return _libs[name]
+
+
+# ---------------------------------------------------------------- launchers
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _offsets(offsets: Sequence[int]):
+    return (ctypes.c_longlong * max(1, len(offsets)))(*[int(o) for o in offsets])
+
+
+def _check(name: str, so: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} launch failed: "
+            f"{so.esr_error_string(err).decode()} ({err})"
+        )
+
+
+def _require(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``."""
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: kernel needs a contiguous CUDA {dtype} tensor, got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def _nv(n_valid: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    if n_valid is None:
+        return None
+    nv = torch.as_tensor(n_valid, device=device).to(torch.int32).reshape(())
+    return nv.contiguous()
+
+
+def scan_fwd(alpha_sn: torch.Tensor, early_exit: float):
+    """K-1 on ``alpha_sn [S, N]``: returns ``(w, t_in [S, N], last [N])``."""
+    _require(alpha_sn, torch.float32, "scan_fwd alpha")
+    S, N = alpha_sn.shape
+    w = torch.empty_like(alpha_sn)
+    t_in = torch.empty_like(alpha_sn)
+    last = torch.empty((N,), dtype=torch.float32, device=alpha_sn.device)
+    so = lib("scan")
+    _check("scan_fwd", so, so.esr_scan_fwd(
+        _ptr(alpha_sn), _ptr(w), _ptr(t_in), _ptr(last), S, N,
+        float(early_exit), _stream(alpha_sn)))
+    launches["scan_fwd"] += 1
+    return w, t_in, last
+
+
+def scan_bwd(alpha_sn, t_in, ctw_sn, ct_last, early_exit: float):
+    """K-2: ``d_alpha [S, N]`` from the forward's ``t_in`` and the
+    cotangents of the weights ``[S, N]`` and of ``last`` ``[N]``."""
+    for t, what in ((alpha_sn, "alpha"), (t_in, "t_in"), (ctw_sn, "ct_w"),
+                    (ct_last, "ct_last")):
+        _require(t, torch.float32, f"scan_bwd {what}")
+    S, N = alpha_sn.shape
+    if t_in.shape != (S, N) or ctw_sn.shape != (S, N) or ct_last.shape != (N,):
+        raise ValueError("scan_bwd: shape mismatch")
+    da = torch.empty_like(alpha_sn)
+    so = lib("scan")
+    _check("scan_bwd", so, so.esr_scan_bwd(
+        _ptr(alpha_sn), _ptr(t_in), _ptr(ctw_sn), _ptr(ct_last), _ptr(da),
+        S, N, float(early_exit), _stream(alpha_sn)))
+    launches["scan_bwd"] += 1
+    return da
+
+
+def splat(base: torch.Tensor, vals: torch.Tensor, offsets: Sequence[int],
+          out: torch.Tensor, n_valid=None) -> torch.Tensor:
+    """K-3: accumulate ``vals [S, C, M]`` at rows ``base + offsets[s]`` of
+    ``out [n_cells, C]`` (in place; the caller zeroes it)."""
+    _require(base, torch.int32, "splat base")
+    _require(vals, torch.float32, "splat vals")
+    _require(out, torch.float32, "splat out")
+    S, C, M = vals.shape
+    if base.shape != (M,) or len(offsets) != S or out.shape[1] != C:
+        raise ValueError("splat: shape mismatch")
+    nv = _nv(n_valid, base.device)
+    so = lib("splat")
+    _check("splat", so, so.esr_splat(
+        _ptr(base), _ptr(vals), _offsets(offsets), S, C, M, out.shape[0],
+        _ptr(nv), _ptr(out), _stream(base)))
+    launches["splat"] += 1
+    return out
+
+
+def gather_weighted(table, base, weights, offsets, n_valid=None):
+    """K-4 weighted: ``out [M, C]`` from ``table [R, C]``, ``base [M]`` and
+    ``weights [M, D]``."""
+    _require(table, torch.float32, "gather table")
+    _require(base, torch.int32, "gather base")
+    _require(weights, torch.float32, "gather weights")
+    R, C = table.shape
+    M, D = weights.shape
+    if base.shape != (M,) or len(offsets) != D:
+        raise ValueError("gather_weighted: shape mismatch")
+    out = torch.empty((M, C), dtype=torch.float32, device=table.device)
+    nv = _nv(n_valid, table.device)
+    so = lib("gather")
+    _check("gather_weighted", so, so.esr_gather_weighted(
+        _ptr(table), R, C, _ptr(base), _ptr(weights), _offsets(offsets), D, M,
+        _ptr(nv), _ptr(out), _stream(table)))
+    launches["gather_weighted"] += 1
+    return out
+
+
+def gather_raw(table, base, offsets, n_valid=None):
+    """K-4 raw: ``out [M, D]`` per-offset values of a ``[R, 1]`` table."""
+    _require(table, torch.float32, "gather table")
+    _require(base, torch.int32, "gather base")
+    R, C = table.shape
+    if C != 1:
+        raise ValueError("gather_raw needs a [R, 1] table")
+    M, D = base.shape[0], len(offsets)
+    out = torch.empty((M, D), dtype=torch.float32, device=table.device)
+    nv = _nv(n_valid, table.device)
+    so = lib("gather")
+    _check("gather_raw", so, so.esr_gather_raw(
+        _ptr(table), R, _ptr(base), _offsets(offsets), D, M, _ptr(nv),
+        _ptr(out), _stream(table)))
+    launches["gather_raw"] += 1
+    return out
