@@ -22,7 +22,19 @@ Phases, in order; any failure exits non-zero:
    timed steps; asserts overflow 0, finite losses and that every kernel
    launched during the timed steps; then a torch.profiler breakdown of
    three more steps (one with the TV terms, as in training) by phase and
-   by kernel.
+   by kernel;
+6. gather benchmarks: the two microbenchmark entry points
+   (esrnerf_tpu_torch.scripts.bench_gather_grid, K-5, tight and random
+   spans; bench_gather_parts, K-6, modes dma, build and full) run in
+   process at their full shapes, each launching its kernel;
+7. trainer: the fine stage end to end through esrnerf_tpu_torch.run.main at
+   full width: a synthetic 256x256 scene (12 train, 3 test views), a
+   coarse-stage checkpoint (64^3 occupancy ball, 96^3 sphere SDF), 24
+   steps with progressive scaling from 4.1M voxels to 256^3 at step 8,
+   eval with metrics and a 512^3 mesh, checkpoints; a resume to step 28;
+   then the test_nv eval of the saved checkpoint. Asserts finite metrics,
+   overflow 0, the eval files, the resume step, and the kernels launched
+   in train (K-1..K-4) and in eval (K-1, K-4).
 
 Prints one JSON line per phase, then the kernel table as one JSON object,
 the nvidia-smi line, and as the last line
@@ -35,6 +47,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,6 +69,10 @@ N_RAYS = 8192
 NUM_VOXELS = 256**3
 
 KERNEL_SOURCES = {
+    "gather_grid": ("esrnerf_tpu_torch/csrc/gather_bench.cu",
+                    "scripts/bench_gather_grid.py:33"),
+    "gather_parts": ("esrnerf_tpu_torch/csrc/gather_bench.cu",
+                     "scripts/bench_gather_parts.py:34"),
     "scan_fwd": ("esrnerf_tpu_torch/csrc/scan.cu", "esrnerf_tpu/ops/scan.py:41"),
     "scan_bwd": ("esrnerf_tpu_torch/csrc/scan.cu", "esrnerf_tpu/ops/scan.py:59"),
     "splat": ("esrnerf_tpu_torch/csrc/splat.cu", "esrnerf_tpu/ops/splat.py:50"),
@@ -77,9 +94,11 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_ms(fn, device, runs: int = 5, warmup: int = 2) -> float:
-    """Median time of ``fn()`` in ms: CUDA events on the card, the host
-    clock around a synchronised call elsewhere."""
+def time_ms(fn, device, runs: int = 5, calls: int = 10,
+            warmup: int = 2) -> float:
+    """Median over ``runs`` of the mean time of ``calls`` back-to-back
+    calls of ``fn()`` in ms: CUDA events around the calls on the card, the
+    host clock around synchronised calls elsewhere."""
     import torch
 
     for _ in range(warmup):
@@ -90,14 +109,16 @@ def time_ms(fn, device, runs: int = 5, warmup: int = 2) -> float:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            for _ in range(calls):
+                fn()
             b.record()
             b.synchronize()
-            times.append(a.elapsed_time(b))
+            times.append(a.elapsed_time(b) / calls)
         else:
             t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / calls)
     return float(np.median(times))
 
 
@@ -463,14 +484,294 @@ def profile_steps(device, run, n=3):
             ph = phases.setdefault(e.name, {"device_ms": 0.0, "host_ms": 0.0})
             ph["device_ms"] += t / 1e3 / n
             ph["host_ms"] += e.cpu_time_total / 1e3 / n
+    from esrnerf_tpu_torch.ops import kernels
+
     ours = {k: sum(dev_us(e) for e in ev if f"{k}_kernel" in e.key) / 1e3 / n
-            for k in ("scan_fwd", "scan_bwd", "splat", "gather_weighted",
-                      "gather_raw")}
+            for k in kernels.launches}
     return {"wall_ms_per_step_profiled": wall / n * 1e3,
             "device_busy_ms_per_step": busy,
             "device_launches_per_step": sum(e.count for e in ev) / n,
             "phases_ms_per_step": phases,
             "port_kernels_ms_per_step": ours, "top": top}
+
+
+# ------------------------------------------------------------- phase 6
+
+
+def _parts_words(mode, npiece, device):
+    """Table words K-6 reads in ``build`` and ``full`` mode (flat index)."""
+    import torch
+
+    from esrnerf_tpu_torch.ops import gather_bench as gb
+
+    G = gb.GROUP
+    k = torch.arange(gb.K, device=device)[:, None, None, None]
+    w = torch.arange(gb.W, device=device)[None, :, None, None]
+    g = torch.arange(gb.GROUPS, device=device)[None, None, :, None]
+    j = torch.arange(G, device=device)[None, None, None, :]
+    r = (3 * j + gb.FAMILY_STRIDE * k - 5).expand(-1, gb.W, gb.GROUPS, -1)
+    words = []
+    for p in range(npiece):
+        t0 = ((13 * p + 7 * g + k) % gb.NCAP_T).expand(-1, gb.W, -1, G)
+        base = gb.GCAP * p
+        if mode == "full":
+            hit = (r >= 0) & (r < gb.GCAP) & (r - G * t0 >= 0) \
+                & (r - G * t0 < 2 * G)
+            words.append((base + r + w)[hit])
+        else:
+            x0 = base + G * t0 + j + w
+            words += [x0.reshape(-1), (x0 + G).reshape(-1)]
+    return torch.cat(words)
+
+
+def check_gather_bench(device, nch=64, npiece=64):
+    """K-5 and K-6 through their entry points' ``main`` (the launch counts
+    are read around each call), then each kernel against its plain version
+    on the same inputs (those launches are not counted). Returns the kernel
+    table rows."""
+    import torch
+
+    from esrnerf_tpu_torch.ops import gather_bench as gb
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.scripts import bench_gather_grid as k5
+    from esrnerf_tpu_torch.scripts import bench_gather_parts as k6
+
+    kern = device.type == "cuda"
+    dev_arg = ["--device", device.type]
+    rows = []
+
+    def row(kernel, variant, launches, err, ms, plain_ms, nbytes):
+        b, by = bound_ms(nbytes, 0)
+        r = {"name": f"{kernel}_{variant}", "route": "cuda",
+             "source": KERNEL_SOURCES[kernel][0],
+             "replaces": KERNEL_SOURCES[kernel][1], "launches": launches,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b, "bound_by": by, "library_ms": None}
+        rows.append(r)
+        emit({"phase": "gather_bench", **r})
+
+    for span in ("tight", "random"):
+        kernels.reset_launches()
+        k5.main(dev_arg + ["--span", span, "--size", str(nch)])
+        launches = kernels.launches["gather_grid"]
+        a = k5.to_device(k5.make_inputs(span == "tight", nch), device)
+        args = (a["idx"], a["w0"], a["gf"], a["gl"])
+        flat = a["tbl"].reshape(-1)
+        fn = ((lambda: kernels.gather_grid(a["tbl"], *args)) if kern
+              else (lambda: gb._gather_grid_plain(flat, *args)))
+        plain = lambda: gb._gather_grid_plain(flat, *args)
+        err = assert_close(f"gather_grid {span}", fn(), plain(), 0.0, 0.0)
+        pos, ok = gb.grid_taps(*args)
+        uniq = int(torch.unique(pos[ok.expand_as(pos)]).numel())
+        nbytes = 4 * (nch * 24 * 2048 + nch * 2048 + nch * 33 + uniq)
+        row("gather_grid", span, launches, err, time_ms(fn, device),
+            time_ms(plain, device), nbytes)
+
+    tbl = torch.as_tensor(k6.make_table(npiece), device=device)
+    flat = tbl.reshape(-1)
+    for mode in gb.MODES:
+        kernels.reset_launches()
+        k6.main(dev_arg + ["--mode", mode, "--size", str(npiece)])
+        launches = kernels.launches[f"gather_parts_{mode}"]
+        fn = ((lambda: kernels.gather_parts(tbl, mode, npiece)) if kern
+              else (lambda: gb._gather_parts_plain(flat, mode, npiece)))
+        plain = lambda: gb._gather_parts_plain(flat, mode, npiece)
+        err = assert_close(f"gather_parts {mode}", fn(), plain(), 0.0, 1e-5)
+        out_bytes = 4 * 24 * 2048
+        if mode == "dma":
+            read = npiece * (gb.NCAP_T + gb.EXT_T) * gb.GROUP
+        else:
+            read = int(torch.unique(_parts_words(mode, npiece,
+                                                 device)).numel())
+        row("gather_parts", mode, launches, err, time_ms(fn, device),
+            time_ms(plain, device), out_bytes + 4 * read)
+    return rows
+
+
+# ------------------------------------------------------------- phase 7
+
+
+def write_coarse_ckpt(path, mask_res=64, coarse_res=96, radius=0.5):
+    """A coarse-stage checkpoint in the JAX package's schema: the
+    benchmark's occupancy ball (radius 0.7) as the mask density and a
+    sphere SDF on the coarse grid of cfg/app/coarse.yaml (96^3 = 884,736
+    voxels)."""
+    from esrnerf_tpu_torch.utils.checkpoint import save_checkpoint
+
+    def r_grid(n):
+        g = np.linspace(-1, 1, n)
+        x, y, z = np.meshgrid(g, g, g, indexing="ij")
+        return np.sqrt(x**2 + y**2 + z**2)
+
+    lo, hi = np.full(3, -1, np.float32), np.ones(3, np.float32)
+    save_checkpoint(path, {
+        "renderer": {
+            "cfg": {}, "near": 0.5, "far": 6.0, "xyz_min": lo, "xyz_max": hi,
+            "s_val": 20.0, "mask_xyz_min": lo, "mask_xyz_max": hi,
+            "mask_alpha_init": 1e-6,
+            "mask_density": np.where(r_grid(mask_res) < 0.7, 20.0, -20.0)
+            .astype(np.float32)[..., None],
+            "params": {"sdf": (r_grid(coarse_res) - radius)
+                       .astype(np.float32)[..., None]},
+        },
+        "trainer": {"global_step": 0},
+    })
+    return path
+
+
+def _alloc_stats(device):
+    """Caching-allocator counters since the last reset: device allocations
+    (cudaMalloc), frees and retries after a failed allocation."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    st = torch.cuda.memory_stats(device)
+    return {k: st.get(k, 0) for k in ("num_device_alloc", "num_device_free",
+                                       "num_alloc_retries")}
+
+
+def train_stage(device, work, wh=256, n_train=12, n_test=3,
+                num_voxels=NUM_VOXELS, n_rays=N_RAYS, n_iters=24,
+                resume_iters=28, pg_step=8, extra=(), mask_res=64,
+                coarse_res=96):
+    """The fine stage through ``esrnerf_tpu_torch.run.main``: train, resume,
+    then the test_nv eval of the saved checkpoint, in ``work``."""
+    import torch
+
+    from esrnerf_tpu_torch import run
+    from esrnerf_tpu_torch.data.synthetic import write_scene
+    from esrnerf_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    write_scene(os.path.join(work, "data"), wh=wh, n_train=n_train,
+                n_test=n_test)
+    coarse = write_coarse_ckpt(os.path.join(work, "coarse.ckpt"), mask_res,
+                               coarse_res)
+    setup_s = time.perf_counter() - t0
+    cfg = os.path.join(REPO, "cfg/exp/esrnerf/giftbox_w/fine.yaml")
+    # s_start 200: the NeuS sharpness that keeps the step's 16-sample head
+    # budget per ray (points_budget_per_ray) free of overflow on this scene
+    ov = ["-cn", cfg, *FINE_OVERRIDES[1:], f"data.root={work}/data",
+          "data.scene=synth_ball", f"log.root={work}/logs", "log.name=smoke",
+          "log.offline=true", "system.debug=true",
+          # log, and so synchronise, after every step: per-step times
+          "system.tqdm_iters=1", f"system.device={device.type}",
+          f"app.trainer.num_voxels={num_voxels}",
+          f"app.trainer.batch_size={n_rays}",
+          f"app.trainer.pg_scale=[{pg_step}]", "app.trainer.save_every=12",
+          "app.trainer.vis_every=24", "app.trainer.N_vis=2",
+          "app.trainer.s_start=200", f"app.trainer.ckpt={coarse}", *extra]
+
+    def count(args):
+        kernels.reset_launches()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+            torch.cuda.reset_accumulated_memory_stats(device)
+        t = time.perf_counter()
+        app = run.main(args)
+        sync(device)
+        return app, dict(kernels.launches), time.perf_counter() - t
+
+    app, train_launches, train_s = count(
+        ov + ["app.phase=train", f"app.trainer.n_iters={n_iters}"])
+    alloc = _alloc_stats(device)
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else None)
+    ld = app.cfg.log["dir"]
+    metrics_path = os.path.join(ld, "metrics.jsonl")
+    n_first = sum(1 for _ in open(metrics_path))
+    app2, _, resume_s = count(
+        ov + ["app.phase=train", f"app.trainer.n_iters={resume_iters}"])
+    alloc_resume = _alloc_stats(device)
+    ckpt = os.path.join(ld, "checkpoints", "last.ckpt")
+    app3, eval_launches, eval_s = count(
+        ov + ["app.phase=test_nv", f"app.eval.ckpt={ckpt}"])
+
+    rows = [json.loads(ln) for ln in open(metrics_path)]
+    for r in rows:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite metrics at step {r['step']}: "
+                                 f"{bad}")
+    train = [r for r in rows if "train/metric/srgb/MSE" in r]
+    if [r["step"] for r in train] != list(range(resume_iters)):
+        raise AssertionError(f"train steps logged: {[r['step'] for r in train]}")
+    if rows[n_first]["step"] != n_iters:
+        raise AssertionError("the resumed run did not start at step "
+                             f"{n_iters}")
+    ovf = max(r["train/metric/etc/overflow"] for r in train)
+    if ovf != 0.0:
+        raise AssertionError(f"train march overflow {ovf} > 0")
+    evals = [r for r in rows if "test_nv/metric/srgb/PSNR" in r]
+    if len(evals) != 2:
+        raise AssertionError(f"{len(evals)} eval rows in training, want 2")
+    ld3 = app3.cfg.log["dir"]
+    evals += [json.loads(ln) for ln in
+              open(os.path.join(ld3, "metrics.jsonl"))]
+    for d, step in ((ld, n_iters - 1), (ld, resume_iters - 1),
+                    (ld3, resume_iters - 1)):
+        mean = open(os.path.join(d, "text", f"{step:010}", "mean.txt")).read()
+        for key in ("srgb/PSNR", "srgb/SSIM", "srgb/LPIPS_ALEX"):
+            if key not in mean:
+                raise AssertionError(f"{d} mean.txt at step {step} lacks {key}")
+        with open(os.path.join(d, "mesh", f"{step:010}", "mesh.ply"),
+                  "rb") as f:
+            head = f.read(200).decode("latin1")
+        if int(head.split("element vertex ")[1].split()[0]) <= 0:
+            raise AssertionError(f"{d}: empty mesh at step {step}")
+    if not np.isfinite(evals[-1]["test_nv/metric/srgb/PSNR"]):
+        raise AssertionError(f"test_nv metrics: {evals[-1]}")
+    missing = ([k for k in ("scan_fwd", "scan_bwd", "splat",
+                            "gather_weighted", "gather_raw")
+                if train_launches[k] == 0]
+               + [f"eval {k}" for k in ("scan_fwd", "gather_weighted",
+                                        "gather_raw")
+                  if eval_launches[k] == 0])
+    if missing and device.type == "cuda":
+        raise AssertionError(f"kernels not launched by the trainer: {missing}")
+
+    # per-step times at the full grid, leaving out the first step after
+    # the rescale, the steps after an eval or checkpoint, and the first
+    # step of the resumed run; TV steps (every tv_every-th) do more work
+    skip = {pg_step, n_iters} | {k + 1 for k in range(resume_iters)
+                                 if k % 12 == 11}
+    tv_every = int(app.cfg.app.trainer.tv_every)
+
+    def step_ms(first_run, tv):
+        return [r["train/metric/etc/sec_per_step"] * 1e3 for r in train
+                if r["train/metric/etc/num_voxels"] == num_voxels
+                and r["step"] not in skip
+                and (r["step"] < n_iters) == first_run
+                and (r["step"] % tv_every == 0) == tv]
+
+    return {
+        "scene": {"wh": wh, "n_train": n_train, "n_test": n_test},
+        "num_voxels": num_voxels, "n_rays": n_rays,
+        "world_size": list(app.renderer.geo.world_size),
+        "setup_s": setup_s, "train_s": train_s, "resume_s": resume_s,
+        "test_nv_s": eval_s,
+        "median_step_ms_full_grid": float(np.median(
+            [t for run in (True, False) for tv in (True, False)
+             for t in step_ms(run, tv)])),
+        "step_ms_full_grid": {
+            f"{run}_{kind}": step_ms(run == "train", kind == "tv")
+            for run in ("train", "resumed") for kind in ("tv", "no_tv")},
+        "allocator_train": alloc, "allocator_resumed": alloc_resume,
+        "eval_s_per_image": app3.timings["eval_s_per_image"],
+        "mesh_s": app3.timings["mesh_s"],
+        "mesh_verts": app3.timings["mesh_verts"],
+        "ckpt_s": app2.timings["ckpt_s"],
+        "ckpt_bytes": app2.timings["ckpt_bytes"],
+        "train_peak_memory_gb": peak,
+        "k1_frac_max": max(r["train/metric/etc/k1_frac"] for r in train),
+        "k2_frac_max": max(r["train/metric/etc/k2_frac"] for r in train),
+        "mse_first": train[0]["train/metric/srgb/MSE"],
+        "mse_last": train[-1]["train/metric/srgb/MSE"],
+        "test_nv": {k.split("/metric/")[1]: v for k, v in evals[-1].items()
+                    if "/metric/" in k},
+        "launches_train": train_launches, "launches_test_nv": eval_launches,
+    }
 
 
 # ------------------------------------------------------------------ main
@@ -519,11 +820,25 @@ def main() -> int:
     res, launches = train_full_width(device, NUM_VOXELS, N_RAYS)
     res["device"] = smi
     emit({"phase": "train", **res})
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [r["name"] for r in rows if launches[r["name"]] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     for r in rows:
         r["launches"] = launches[r["name"]]
+    del res
+    torch.cuda.empty_cache()
+
+    gb_rows = check_gather_bench(device)
+    zero = [r["name"] for r in gb_rows if r["launches"] == 0]
+    if zero:
+        raise AssertionError(f"benchmark kernels not launched: {zero}")
+    rows += gb_rows
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="esr_smoke_") as work:
+        tr = train_stage(device, work)
+    tr["device"] = smi
+    emit({"phase": "trainer", **tr})
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -11,7 +11,9 @@ semantics the reference relies on (reference: ``run.py:21``,
   root when absolute (``/cfg/app/alphamask``);
 - ``${a.b.c}`` interpolations and the ``${now:<strftime>}`` resolver;
 - ``???`` marks mandatory values that must be filled by a higher layer;
-- CLI dot-overrides (``app.phase=train``) applied after composition.
+- CLI dot-overrides (``app.phase=train``) applied after composition;
+- the resolved config is re-saved into the log dir (:func:`save_cfg`) so
+  that a log-dir ``cfg.yaml`` is itself a runnable config.
 
 Configs compose to a plain nested dict wrapped in :class:`Config` for
 attribute access.
@@ -60,6 +62,14 @@ class Config(dict):
                 node[part] = nxt
             node = nxt
         node[parts[-1]] = value
+
+    def get_path(self, dotted: str, default: Any = None) -> Any:
+        node: Any = self
+        for part in dotted.split("."):
+            if not isinstance(node, dict) or part not in node:
+                return default
+            node = node[part]
+        return node
 
     def to_dict(self) -> Dict[str, Any]:
         return _unwrap(self)
@@ -214,3 +224,52 @@ def load_cfg(
     _interpolate(cfg)
     return cfg
 
+
+def missing_keys(cfg: Dict[str, Any], prefix: str = "") -> List[str]:
+    """List every dotted path still set to '???'."""
+    out: List[str] = []
+    for k, v in cfg.items():
+        dotted = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.extend(missing_keys(v, dotted))
+        elif v == MISSING:
+            out.append(dotted)
+    return out
+
+
+def save_cfg(cfg: Config, path: Optional[str] = None) -> str:
+    """Write the resolved config into the log dir (``cfg.yaml``) so that the
+    log-dir config is itself runnable."""
+    if path is None:
+        path = os.path.join(cfg.log.dir, "cfg.yaml")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    data = _unwrap(cfg)
+    data.pop("__config_name__", None)
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
+    return path
+
+
+def customize_cfg(cfg: Config) -> Config:
+    """Fill derived fields: log dirs, phase check, debug redirection.
+    ``log.dir`` = ``<root>/info/<project>/<group>/<name>/<phase>`` and
+    ``log.ckpt_dir`` = ``<root>/ckpt/<project>/<group>/<name>``."""
+    if cfg.get_path("system.debug"):
+        cfg.log["project"] = "debug"
+
+    phase = cfg.app["phase"]
+    valid = {"train", "test_nv", "test_nvc", "test_nvi", "test_nvic"}
+    if phase not in valid:
+        raise ValueError(f"unknown phase '{phase}', expected one of {sorted(valid)}")
+
+    if not cfg.log.get("dir"):
+        cfg.log["dir"] = os.path.join(
+            cfg.log["root"], "info", cfg.log["project"], cfg.log["group"],
+            cfg.log["name"], phase,
+        )
+    if not cfg.log.get("ckpt_dir"):
+        cfg.log["ckpt_dir"] = os.path.join(
+            cfg.log["root"], "ckpt", cfg.log["project"], cfg.log["group"],
+            cfg.log["name"],
+        )
+    return cfg

@@ -1,0 +1,217 @@
+"""ESR-NeRF blender-style dataset loader, ``train`` and ``test_nv`` phases.
+
+Port of ``esrnerf_tpu/data/esrnerf.py`` (numpy): ``transforms_{phase}.json``
+with per-frame light modes; ``test_nv`` also loads the emission-area masks
+and the HDR EXRs; rays derive from the poses through the blender -> OpenCV
+flip; RGBA is composited over a white or black background; the train phase
+flattens all images into one ray pool. The arrays equal the JAX loader's.
+
+PNGs are read with :mod:`esrnerf_tpu_torch.utils.png` and EXRs with
+:mod:`esrnerf_tpu_torch.utils.exr`, so neither PIL nor OpenCV is needed.
+Only a ``data.resize`` that changes the image size imports them (PIL's
+Lanczos for images and masks, OpenCV's Lanczos-4 for HDRs, as the JAX
+loader does); at ``resize: 1.0`` those resamplers return their input.
+The relighting phases (``test_nvc``, ``test_nvi``, ``test_nvic``) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+from typing import Any, Dict, Tuple
+
+import numpy as np
+
+from esrnerf_tpu_torch.data.base import DataClass, LightDict
+from esrnerf_tpu_torch.utils import exr, png
+
+# blender cam (+x right, +y up, -z forward) -> opencv (+x right, -y up, +z fwd)
+BLENDER2OPENCV = np.array(
+    [[1, 0, 0, 0], [0, -1, 0, 0], [0, 0, -1, 0], [0, 0, 0, 1]], dtype=np.float32
+)
+PHASES = ("train", "test_nv")
+
+
+def _imread_float(path: str) -> np.ndarray:
+    return png.read(path).astype(np.float32) / 255.0
+
+
+def _need(module: str, what: str):
+    import importlib
+
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise ImportError(
+            f"data.resize needs {module} to resample {what}; install it or "
+            "set data.resize to 1.0") from e
+
+
+def _imresize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    Image = _need("PIL.Image", "images")
+    arr = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+    return np.asarray(arr.resize(size, Image.LANCZOS), dtype=np.float32) / 255.0
+
+
+def _hdr_resize(hdr: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    cv2 = _need("cv2", "HDR images")
+    return cv2.resize(hdr, size, interpolation=cv2.INTER_LANCZOS4)
+
+
+class ESRNeRF(DataClass):
+    def __init__(self, cfg, phase: str):
+        if phase not in PHASES:
+            raise NotImplementedError(
+                f"phase '{phase}': the port loads {PHASES} only (the "
+                "relighting phases are on the ROADMAP)")
+        super().__init__(cfg, phase)
+        tpath = os.path.join(
+            self.root, str(self.scene), "transforms", f"transforms_{phase}.json"
+        )
+        with open(tpath, "r") as f:
+            self.infos = json.load(f)
+
+        sample = self.seek(0)
+        h, w = sample["image"].shape[:2]
+        self.width, self.height = w, h
+        if self.resize:
+            self.width = int(self.width * self.resize)
+            self.height = int(self.height * self.resize)
+        self._resample = (self.width, self.height) != (w, h)
+        self.flen = (
+            self.width / 2.0 / math.tan(float(self.infos["camera_angle_x"]) / 2.0)
+        )
+
+        # pixel-center camera-space directions
+        i, j = np.meshgrid(
+            np.arange(self.width, dtype=np.float32),
+            np.arange(self.height, dtype=np.float32),
+            indexing="xy",
+        )
+        i, j = i + 0.5, j + 0.5
+        self.pixelcoord = np.stack(
+            [
+                (i - self.width * 0.5) / self.flen,
+                (j - self.height * 0.5) / self.flen,
+                np.ones_like(i),
+            ],
+            axis=-1,
+        ).astype(np.float32)
+
+        self.cache: Dict[str, np.ndarray] = {}
+        self.preprocess()
+
+    # ----------------------------------------------------------- properties
+
+    @property
+    def image_size(self) -> Tuple[int, int]:
+        return (self.width, self.height)
+
+    @property
+    def focal_length(self) -> float:
+        return self.flen
+
+    @property
+    def all_data(self) -> Dict[str, np.ndarray]:
+        return self.cache
+
+    @property
+    def near_far(self) -> Tuple[float, float]:
+        return 2.0, 6.0
+
+    @property
+    def scale_mat(self) -> np.ndarray:
+        return np.eye(4, dtype=np.float32)
+
+    def __len__(self) -> int:
+        return len(self.cache["rgbs"])
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return {k: v[index] for k, v in self.cache.items()}
+
+    # ------------------------------------------------------------------- io
+
+    def seek(self, index: int) -> Dict[str, Any]:
+        frame = self.infos["frames"][index]
+        scene_dir = os.path.join(self.root, str(self.scene))
+        dname, fname = frame["file_path"].split("/")
+        sample: Dict[str, Any] = {
+            "pose": np.asarray(frame["transform_matrix"], dtype=np.float32),
+            "image": _imread_float(os.path.join(scene_dir, dname, fname + ".png")),
+            "em_mode": [light["mode"] for light in frame["lights"]],
+        }
+        if self.phase == "test_nv":
+            sample["area"] = _imread_float(
+                os.path.join(scene_dir, dname, "emission", fname + ".png")
+            )
+            sample["hdr"] = exr.imread(
+                os.path.join(scene_dir, dname, "exr", fname + ".exr")
+            )[..., :3].astype(np.float32)
+        return sample
+
+    # ----------------------------------------------------------- preprocess
+
+    def preprocess(self) -> None:
+        cache: Dict[str, list] = {
+            "poses": [], "rays_o": [], "rays_d": [], "viewdirs": [],
+            "rgbs": [], "em_modes": [],
+        }
+        if self.phase == "test_nv":
+            cache["areas"] = []
+            cache["hdrs"] = []
+
+        wh = (self.width, self.height)
+        n_px = self.width * self.height
+        for idx in range(len(self.infos["frames"])):
+            s = self.seek(idx)
+            cache["poses"].append(s["pose"])
+
+            img = s["image"]
+            if self._resample:
+                img = _imresize(img, wh)
+            cache["rgbs"].append(img.reshape(n_px, -1))
+
+            if self.phase == "train":
+                mode = np.full(n_px, LightDict[s["em_mode"][0]], dtype=np.int64)
+                cache["em_modes"].append(mode)
+            else:
+                cache["em_modes"].append(
+                    np.asarray([LightDict[m] for m in s["em_mode"]], dtype=np.int64)
+                )
+                area = s["area"]
+                if self._resample:
+                    area = _imresize(area, wh)
+                cache["areas"].append((area[..., 0] > 0.5).reshape(-1))
+                hdr = s["hdr"]
+                if self._resample:
+                    hdr = _hdr_resize(hdr, wh)
+                cache["hdrs"].append(hdr.reshape(n_px, -1))
+
+        out = {k: np.stack(v, axis=0) for k, v in cache.items() if len(v) > 0}
+
+        mask = out["rgbs"][..., -1:]
+        out["rgbs"] = out["rgbs"][..., :3] * mask + (1 - mask) * self.white_bg
+        out["rays_o"], out["rays_d"] = self.pose2ray(out["poses"])
+        out["viewdirs"] = out["rays_d"] / np.linalg.norm(
+            out["rays_d"], axis=-1, keepdims=True
+        )
+        if self.phase == "test_nv":
+            out["hdrs"] = out["hdrs"][..., :3] * mask + (1 - mask) * self.white_bg
+
+        if self.phase == "train":
+            for k in ("rgbs", "rays_o", "rays_d", "viewdirs"):
+                out[k] = out[k].reshape(-1, 3)
+            out["em_modes"] = out["em_modes"].reshape(-1)
+
+        self.cache = {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+    def pose2ray(self, poses: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        _pose = poses @ BLENDER2OPENCV
+        pix = self.pixelcoord.reshape(-1, 3)
+        rays_o = np.broadcast_to(
+            _pose[..., None, :3, -1], (*_pose.shape[:-2], len(pix), 3)
+        ).astype(np.float32)
+        rays_d = (pix[None, :, None, :] * _pose[:, None, :3, :3]).sum(-1)
+        return np.ascontiguousarray(rays_o), rays_d.astype(np.float32)

@@ -13,10 +13,12 @@ reference) is :func:`fixed_size_nonzero`, a cumsum + scatter that keeps the
 ray-major order, the same ``n1``/``n2`` counts and the same overflow, and
 never syncs the host.
 
-Not ported yet: the SDF surface-band cull (``band_occ64``,
+Also here: the training-ray filter
+(:meth:`VoxurfGeometry.filter_rays_in_maskcache`), the SDF value and
+gradient sampler of the eval normals, and the mesh extraction. Not ported
+yet: the SDF surface-band cull (``band_occ64``,
 ``query_nearest64``; the fine stage sets ``surf_band_factor: 0``),
-``march_ray_slots``, ``sample_sdf_grad``, ``filter_rays_in_maskcache`` and
-``extract_geometry``.
+``march_ray_slots`` and the DVGO-style ray filter.
 """
 
 from __future__ import annotations
@@ -555,3 +557,60 @@ class VoxurfGeometry:
         M = pts.shape[0]
         return (feat.reshape(M, 6 * D), grad.reshape(M, 3 * D),
                 normal.reshape(M, 3 * D))
+
+    def sample_sdf_grad(self, sdf_grid: torch.Tensor, pts: torch.Tensor):
+        """SDF value ``[M]`` and xyz-ordered 1-voxel finite-difference
+        gradient ``[M, 3]``."""
+        sdf = self.sample_grid(sdf_grid, pts)[..., 0]
+        _, grad, _ = self.sample_sdfeat_grad_normal(sdf_grid, pts, (1.0,))
+        grad_xyz = torch.stack([grad[:, 2], grad[:, 1], grad[:, 0]], dim=-1)
+        return sdf, grad_xyz
+
+    # -------------------------------------------------- training-ray filter
+
+    @torch.no_grad()
+    def filter_rays_in_maskcache(self, rays_o: np.ndarray, rays_d: np.ndarray,
+                                 chunk: int,
+                                 style: str = "voxurf") -> np.ndarray:
+        """Host bool mask of the rays whose dense samples hit the mask cache
+        at least once, ``chunk`` rays at a time on the geometry's device.
+        Only the ``voxurf`` sampler (far = 1e9) is ported."""
+        if style != "voxurf":
+            raise NotImplementedError(
+                f"filter_rays_in_maskcache: style '{style}' is not ported")
+        out = np.ones(len(rays_o), dtype=bool)
+        for st in range(0, len(rays_o), chunk):
+            en = min(st + chunk, len(rays_o))
+            ro = torch.as_tensor(rays_o[st:en], device=self.device)
+            rd = torch.as_tensor(rays_d[st:en], device=self.device)
+            rs = self.sample_dense(ro, rd)
+            ok = rs.valid & self.mask_cache.query(rs.pts)
+            out[st:en] = ok.any(-1).cpu().numpy()
+        return out
+
+    # --------------------------------------------------------------- meshes
+
+    @torch.no_grad()
+    def extract_geometry(self, sdf_grid: torch.Tensor, resolution: int = 512,
+                         threshold: float = 0.0, smooth: bool = True,
+                         sigma: float = 0.5, max_points: int = 2**22):
+        """Marching-tetrahedra mesh ``(verts [V, 3], tris [T, 3])`` in world
+        coordinates of the (optionally Gaussian-smoothed) SDF's zero set,
+        from a ``resolution^3`` field sampled on the SDF's device
+        ``max_points`` at a time."""
+        from esrnerf_tpu_torch.utils import mesh as meshutil
+
+        if smooth:
+            kern = gridops.make_gaussian_kernel_3d(3, sigma)
+            sdf_grid = gridops.conv3d_replicate(sdf_grid, kern)
+
+        u = meshutil.extract_fields(
+            self.xyz_min, self.xyz_max, resolution,
+            lambda pts: -self.sample_grid(sdf_grid, pts)[..., 0],
+            max_points, device=self.device,
+        )
+        verts, tris = meshutil.marching_cubes(u, threshold)
+        verts = verts / (resolution - 1.0) * (
+            self.xyz_max - self.xyz_min
+        )[None, :] + self.xyz_min[None, :]
+        return verts, tris

@@ -1,17 +1,15 @@
 """VoxurfF: the fine-stage HDR renderer with a learnable tone-mapper.
 
-Port of ``esrnerf_tpu/models/voxurff.py`` (training path). The radiance
-heads output softplus linear HDR RGB; the tone-mapper maps PE-encoded
-linear RGB to sigmoid sRGB; features add the per-point SDF value, the
-multi-scale 6-neighbour SDF taps and per-displacement normals; emissive-on
-rays add the detached off head.
+Port of ``esrnerf_tpu/models/voxurff.py``. The radiance heads output
+softplus linear HDR RGB; the tone-mapper maps PE-encoded linear RGB to
+sigmoid sRGB; features add the per-point SDF value, the multi-scale
+6-neighbour SDF taps and per-displacement normals; emissive-on rays add
+the detached off head. Besides the training forward: the coarse-SDF warm
+start, progressive grid scaling, the eval forward and the mesh.
 
 Parameters are a plain dict with the reference's group names: ``sdf``,
 ``off_color``, ``emo_color`` (``[X,Y,Z,C]`` grids) and ``off_rgbnet``,
 ``emo_rgbnet``, ``tonemapper`` (dicts of ``w{i}`` ``[in,out]`` / ``b{i}``).
-
-Not ported yet: ``forward_evaluate``, ``scale_volume_grid``,
-``load_coarse_sdf`` and ``extract_geometry``.
 """
 
 from __future__ import annotations
@@ -27,8 +25,12 @@ from esrnerf_tpu_torch.models import mlp as mlpops
 from esrnerf_tpu_torch.models.voxurf_base import MaskCache, VoxurfGeometry
 from esrnerf_tpu_torch.ops import grid as gridops
 from esrnerf_tpu_torch.ops import tv as tvops
+from esrnerf_tpu_torch.utils.device import small_const
 
 Params = Dict[str, object]
+
+# eval normals: camera-space y and z flip to the image convention
+NORMAL_FLIPPER = (1.0, -1.0, -1.0)
 
 
 class VoxurfF:
@@ -80,6 +82,10 @@ class VoxurfF:
         self._colorfreq = torch.tensor(
             [2.0**i for i in range(self.colorbase_pe)], device=dev)
 
+    @property
+    def num_voxels(self) -> int:
+        return self.geo.num_voxels
+
     # ------------------------------------------------------------------ init
 
     def init_params(self, generator: torch.Generator) -> Params:
@@ -97,6 +103,36 @@ class VoxurfF:
             "emo_rgbnet": mlpops.init_mlp(generator, dims, dev),
             "tonemapper": mlpops.init_mlp(generator, tm_dims, dev),
         }
+
+    @torch.no_grad()
+    def load_coarse_sdf(self, coarse_sdf: np.ndarray,
+                        sdf_reduce: float) -> torch.Tensor:
+        """Warm-start SDF from the coarse stage's ``[X,Y,Z,1]`` grid: scaled
+        by ``1 / sdf_reduce``, resized to this grid, Gaussian-smoothed
+        (k=5, sigma=1), and pushed to +1 outside the nonempty mask."""
+        sdf = torch.as_tensor(np.asarray(coarse_sdf, np.float32),
+                              device=self.device) / sdf_reduce
+        if tuple(sdf.shape[:3]) != tuple(self.geo.world_size):
+            sdf = gridops.resize_trilinear(sdf, self.geo.world_size)
+        sdf = gridops.conv3d_replicate(
+            sdf, gridops.make_gaussian_kernel_3d(5, 1.0))
+        return torch.where(self._nonempty[..., None], sdf,
+                           torch.ones_like(sdf))
+
+    @torch.no_grad()
+    def scale_volume_grid(self, params: Params, num_voxels: int) -> Params:
+        """Trilinear upsample of the SDF and color grids to ``num_voxels``.
+        Rebuilds the geometry (world size, sample count, block-dilated
+        mask, nonempty mask); the caller makes a new optimizer state."""
+        self.geo.set_grid_resolution(int(num_voxels))
+        new_size = self.geo.world_size
+        out = dict(params)
+        for k in ("sdf", "off_color", "emo_color"):
+            out[k] = gridops.resize_trilinear(params[k], new_size)
+        self._nonempty = self.geo.nonempty_mask()
+        out["sdf"] = torch.where(self._nonempty[..., None], out["sdf"],
+                                 torch.ones_like(out["sdf"]))
+        return out
 
     # -------------------------------------------------------------- features
 
@@ -171,6 +207,62 @@ class VoxurfF:
             "etc/k2_frac": m.k2_frac,
         }
 
+    @torch.no_grad()
+    def forward_evaluate(self, params: Params, rays_o, rays_d, viewdirs,
+                         em_mode: int, pos_rt, s_val) -> Dict[str, torch.Tensor]:
+        """Eval render of one chunk of rays with one emission mode: off, on
+        (= off + emo) and emo radiance in linear and tone-mapped sRGB, the
+        camera-space normal map, depth and disparity. ``pos_rt`` is the
+        camera's ``[3, 3]`` rotation; ``etc/overflow`` is the march's."""
+        geo = self.geo
+        with record_function("fine/march"):
+            m = geo.march(
+                params["sdf"], rays_o, rays_d, viewdirs, s_val,
+                self.fastcolor_thres, self.neus_alpha, style="fine",
+            )
+        rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
+        feat = self._features(params, m.pts, viewdirs.index_select(0, rid),
+                              m.sdf, n_valid=m.n_valid)
+        off_gv, emo_gv = geo.sample_grids_sorted(
+            (params["off_color"], params["emo_color"]), m.pts, m.n_valid
+        )
+        lin_off = self._radiance(params, "off", feat, off_gv)
+        lin_emo = self._radiance(params, "emo", feat, emo_gv)
+        lin_on = lin_off + lin_emo
+        off = self.apply_tonemapper(params, lin_off)
+        emo = self.apply_tonemapper(params, lin_emo)
+        on = self.apply_tonemapper(params, lin_on)
+
+        _, grad_xyz = geo.sample_sdf_grad(params["sdf"], m.pts)
+        normal = grad_xyz / torch.clamp(
+            torch.linalg.vector_norm(grad_xyz, dim=-1, keepdim=True),
+            min=1e-12)
+        flip = small_const(NORMAL_FLIPPER, torch.float32, normal.device)
+        nrm = ((normal @ pos_rt) * flip + 1.0) / 2.0
+
+        out = {}
+        for key, v in [
+            ("srgb/off_rgb", off), ("lin/off_rgb", lin_off),
+            ("srgb/on_rgb", on), ("lin/on_rgb", lin_on),
+            ("srgb/emo_rgb", emo), ("lin/emo_rgb", lin_emo),
+            ("etc/normal", nrm),
+        ]:
+            out[key] = geo.segment_to_rays(m, v)
+
+        depth = geo.segment_to_rays(
+            m, m.step_id.to(torch.float32) * geo.stepdist)
+        disp = 1.0 / (depth + m.alphainv_last * geo.far)
+        is_off = int(em_mode) == 0
+        out.update({
+            "etc/depth": depth,
+            "etc/disp": disp,
+            "etc/white_bg": m.alphainv_last[..., None],
+            "srgb/rgb": out["srgb/off_rgb"] if is_off else out["srgb/on_rgb"],
+            "lin/rgb": out["lin/off_rgb"] if is_off else out["lin/on_rgb"],
+            "etc/overflow": m.overflow,
+        })
+        return out
+
     # ---------------------------------------------------------------- losses
 
     def density_total_variation(self, params: Params, smooth_grad_tv):
@@ -190,6 +282,9 @@ class VoxurfF:
         max(world) / 128."""
         w = weight * max(self.geo.world_size) / 128.0
         return tvops.tv_grad(sdf, w, w, w, sparse_grad=sparse_grad)
+
+    def extract_geometry(self, params: Params, **kw):
+        return self.geo.extract_geometry(params["sdf"], **kw)
 
     def export_meta(self) -> dict:
         return {

@@ -1,7 +1,7 @@
 """Dense voxel-grid sampling, pooling and smoothing on ``[X, Y, Z, C]``
 grids.
 
-Port of the parts of ``esrnerf_tpu/ops/grid.py`` that the fine step uses.
+Port of the parts of ``esrnerf_tpu/ops/grid.py`` that the fine stage uses.
 Sampling is trilinear with ``align_corners=True``: a point at ``xyz_min``
 maps to index 0 and ``xyz_max`` to ``dim - 1``; ``mode='zeros'`` gives
 out-of-range corners zero weight. Forwards are plain PyTorch gathers; the
@@ -267,6 +267,49 @@ def displaced_taps(grid, pts, xyz_min, xyz_max, displace, n_valid=None):
     """
     return _DisplacedTaps.apply(grid, pts, xyz_min, xyz_max,
                                 tuple(float(d) for d in displace), n_valid)
+
+
+# ------------------------------------------------------------------ resize
+
+
+@torch.no_grad()
+def resize_trilinear(grid: torch.Tensor, new_size, slab: int = 16):
+    """Trilinear resize of a ``[X, Y, Z, C]`` grid to ``new_size``
+    (align_corners=True, border mode): the new voxel centres sampled in the
+    old grid's index space, ``slab`` output x-planes at a time to bound the
+    temporaries. No gradient (the trainer resizes between steps)."""
+    X, Y, Z, C = grid.shape
+    nx, ny, nz = (int(n) for n in new_size)
+    dev = grid.device
+
+    def axis(n_old, n_new):
+        # index-space voxel centres, i * delta with the endpoint exact (the
+        # JAX package's linspace from 0 as XLA evaluates it)
+        if n_new == 1:
+            return torch.zeros((1,), dtype=torch.float32, device=dev)
+        delta = float(np.float32(n_old - 1) / np.float32(n_new - 1))
+        t = torch.arange(n_new, dtype=torch.float32, device=dev) * delta
+        t[-1] = float(n_old - 1)
+        return t
+
+    gx, gy, gz = axis(X, nx), axis(Y, ny), axis(Z, nz)
+    zero = torch.zeros((3,), dtype=torch.float32, device=dev)
+    top = torch.tensor([X - 1.0, Y - 1.0, Z - 1.0], device=dev)
+    out = torch.empty((nx, ny, nz, C), dtype=grid.dtype, device=dev)
+    for x0 in range(0, nx, slab):
+        xx, yy, zz = torch.meshgrid(gx[x0:x0 + slab], gy, gz, indexing="ij")
+        pts = torch.stack([xx, yy, zz], -1)
+        out[x0:x0 + slab] = grid_sample_3d_impl(grid, pts, zero, top,
+                                                mode="border")
+    return out
+
+
+def make_gaussian_kernel_3d(ksize: int = 3, sigma: float = 1.0) -> np.ndarray:
+    """Normalized ``[k, k, k]`` Gaussian kernel."""
+    r = np.arange(-(ksize // 2), ksize // 2 + 1, 1)
+    xx, yy, zz = np.meshgrid(r, r, r)
+    k = np.exp(-(xx**2 + yy**2 + zz**2) / (2 * sigma**2))
+    return (k / k.sum()).astype(np.float32)
 
 
 # --------------------------------------------------------- pooling, smoothing

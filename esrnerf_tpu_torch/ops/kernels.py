@@ -1,9 +1,11 @@
 """Build, load, launch and count the port's hand-written CUDA kernels.
 
-Each source under ``esrnerf_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-``sm_90a`` into its own shared library with a plain C interface and loaded
-with :mod:`ctypes`. Building happens at first use (or through :func:`build`),
-one ``nvcc`` process per source, all started together, into the git-ignored
+Each CUDA source under ``esrnerf_tpu_torch/csrc/`` is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library with a plain C interface and
+loaded with :mod:`ctypes`; the host-code marching-tetrahedra mesher
+(``marching.cpp``) is compiled by the host C++ compiler the same way.
+Building happens at first use (or through :func:`build`), one compiler
+process per source, all started together, into the git-ignored
 ``esrnerf_tpu_torch/build/``. A library's file name carries a hash of its
 sources and flags, so an edited source is never served by a stale library.
 Importing this module builds nothing and needs neither ``nvcc`` nor a GPU.
@@ -30,17 +32,22 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # library -> source file; each is built into its own .so
-SOURCES = {"scan": "scan.cu", "splat": "splat.cu", "gather": "gather.cu"}
+SOURCES = {"scan": "scan.cu", "splat": "splat.cu", "gather": "gather.cu",
+           "gather_bench": "gather_bench.cu"}
+# host-code libraries (no CUDA), built by the host C++ compiler
+HOST_SOURCES = {"marching": "marching.cpp"}
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {
     "scan_fwd": 0, "scan_bwd": 0, "splat": 0, "gather_weighted": 0,
-    "gather_raw": 0,
+    "gather_raw": 0, "gather_grid": 0, "gather_parts_dma": 0,
+    "gather_parts_build": 0, "gather_parts_full": 0,
 }
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -58,6 +65,21 @@ _SIGNATURES = {
         "esr_gather_weighted": [_vp, _ll, _i, _vp, _vp, _LL_P, _i, _i, _vp,
                                 _vp, _vp],
         "esr_gather_raw": [_vp, _ll, _vp, _LL_P, _i, _i, _vp, _vp, _vp],
+    },
+    "gather_bench": {
+        "esr_gather_grid": [_vp, _ll, _vp, _vp, _vp, _vp, _i, _vp, _vp],
+        "esr_gather_parts": [_vp, _ll, _i, _i, _vp, _vp],
+    },
+}
+# host libraries: function -> (argtypes, restype)
+_I64, _F_P = ctypes.c_int64, ctypes.POINTER(ctypes.c_float)
+_HOST_SIGNATURES = {
+    "marching": {
+        "mt_extract": ([_F_P, _I64, _I64, _I64, _f], _vp),
+        "mt_num_verts": ([_vp], _I64),
+        "mt_num_tris": ([_vp], _I64),
+        "mt_copy": ([_vp, _F_P, ctypes.POINTER(_I64)], None),
+        "mt_free": ([_vp], None),
     },
 }
 
@@ -82,29 +104,47 @@ def _nvcc() -> str:
     )
 
 
+def _cxx() -> str:
+    for c in (os.environ.get("CXX"), shutil.which("g++"), shutil.which("c++")):
+        if c:
+            return c
+    raise RuntimeError("no host C++ compiler (g++ or c++) found to build "
+                       "esrnerf_tpu_torch/csrc/marching.cpp")
+
+
+def _source(name: str) -> str:
+    return SOURCES.get(name) or HOST_SOURCES[name]
+
+
 def _lib_path(name: str) -> str:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name], *_HEADERS):
+    host = name in HOST_SOURCES
+    h = hashlib.sha1(" ".join(CXX_FLAGS if host else NVCC_FLAGS).encode())
+    for f in (_source(name), *(() if host else _HEADERS)):
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def build() -> Dict[str, str]:
-    """Compile the libraries not built yet, one ``nvcc`` per source, all in
-    parallel. Returns ``{name: compiler report}`` (``-Xptxas -v``: registers,
-    shared memory and spills per kernel) for those compiled now. Raises
-    with the compiler's output if any build fails."""
-    todo = [n for n in SOURCES if not os.path.exists(_lib_path(n))]
+def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Compile the libraries not built yet (all, or ``names``), one compiler
+    process per source, all in parallel. Returns ``{name: compiler
+    report}`` (for CUDA sources ``-Xptxas -v``: registers, shared memory and
+    spills per kernel) for those compiled now. Raises with the compiler's
+    output if any build fails."""
+    names = list(names) if names is not None else [*SOURCES, *HOST_SOURCES]
+    todo = [n for n in names if not os.path.exists(_lib_path(n))]
     if not todo:
         return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for n in todo:
         out = _lib_path(n)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[n])]
+        if n in HOST_SOURCES:
+            cmd = [_cxx(), *CXX_FLAGS]
+        else:
+            cmd = [_nvcc(), *NVCC_FLAGS]
+        cmd += ["-o", tmp, os.path.join(CSRC, _source(n))]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)
@@ -113,21 +153,28 @@ def build() -> Dict[str, str]:
         log, _ = p.communicate()
         reports[n] = log
         if p.returncode != 0:
-            failed.append(f"--- {SOURCES[n]} (nvcc exit {p.returncode})\n{log}")
+            failed.append(f"--- {_source(n)} (exit {p.returncode})\n{log}")
             if os.path.exists(tmp):
                 os.remove(tmp)
         else:
             os.replace(tmp, out)  # atomic: no process loads half a file
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
 
 
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed."""
     if name not in _libs:
-        build()
+        # first use builds every CUDA library together; a host library alone
+        build(list(SOURCES) if name in SOURCES else [name])
         so = ctypes.CDLL(_lib_path(name))
+        if name in HOST_SOURCES:
+            for fn, (args, res) in _HOST_SIGNATURES[name].items():
+                getattr(so, fn).argtypes = args
+                getattr(so, fn).restype = res
+            _libs[name] = so
+            return so
         for fn, args in _SIGNATURES[name].items():
             getattr(so, fn).argtypes = args
             getattr(so, fn).restype = ctypes.c_int
@@ -263,4 +310,36 @@ def gather_raw(table, base, offsets, n_valid=None):
         _ptr(table), R, _ptr(base), _offsets(offsets), D, M, _ptr(nv),
         _ptr(out), _stream(table)))
     launches["gather_raw"] += 1
+    return out
+
+
+def gather_grid(tbl, idx, w0, gf, gl):
+    """K-5: ``out [NCH, 24, 2048]`` from the flat table and int32 ``idx
+    [NCH*16, 128]``, ``w0 [NCH]``, ``gf, gl [NCH, 16]``."""
+    _require(tbl, torch.float32, "gather_grid tbl")
+    for t, what in ((idx, "idx"), (w0, "w0"), (gf, "gf"), (gl, "gl")):
+        _require(t, torch.int32, f"gather_grid {what}")
+    nch = w0.shape[0]
+    out = torch.empty((nch, 24, 2048), dtype=torch.float32, device=tbl.device)
+    so = lib("gather_bench")
+    _check("gather_grid", so, so.esr_gather_grid(
+        _ptr(tbl), tbl.numel(), _ptr(idx), _ptr(w0), _ptr(gf), _ptr(gl), nch,
+        _ptr(out), _stream(tbl)))
+    launches["gather_grid"] += 1
+    return out
+
+
+_PARTS_MODES = {"dma": 0, "build": 1, "full": 2}
+
+
+def gather_parts(tbl, mode: str, npiece: int):
+    """K-6: ``out [1, 24, 2048]`` after sweeping ``npiece`` pieces of the
+    flat table in ``mode`` (``dma``, ``build`` or ``full``)."""
+    _require(tbl, torch.float32, "gather_parts tbl")
+    out = torch.empty((1, 24, 2048), dtype=torch.float32, device=tbl.device)
+    so = lib("gather_bench")
+    _check(f"gather_parts_{mode}", so, so.esr_gather_parts(
+        _ptr(tbl), tbl.numel(), int(npiece), _PARTS_MODES[mode], _ptr(out),
+        _stream(tbl)))
+    launches[f"gather_parts_{mode}"] += 1
     return out

@@ -1,0 +1,92 @@
+"""Entry point of the port: compose a config, set up logging, run a stage.
+
+    python -m esrnerf_tpu_torch.run -cn cfg/exp/esrnerf/giftbox_w/fine.yaml \\
+        app.phase=train [system.device=cpu] [key.path=value ...]
+
+Mirrors the JAX package's ``run.py``: stage classes resolve by the same
+dotted names (``app.cls``), the resolved config is saved into the log dir
+with a copy of the port's package, and a training run resumes from
+``<log.dir>/checkpoints/last.ckpt``. Only the fine stage is ported
+(``fine.Fine``); the other stage names raise ``NotImplementedError``.
+``system.device=cpu`` runs on the CPU (the plain PyTorch versions of the
+kernels); any other value, including the configs' ``tpu`` or none, means
+the GPU, and the run raises when CUDA is not available.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import sys
+
+# stage-class dotted name -> implementing module/class in this package
+STAGE_REGISTRY = {
+    "fine.Fine": "esrnerf_tpu_torch.apps.fine.Fine",
+}
+NOT_PORTED = ("coarse.AlphaMask", "coarse.Coarse", "fine.LTS", "fine.PDRA")
+
+
+def _snapshot_code(log_dir: str) -> None:
+    """Copy the port's package and the config tree into the log dir, once
+    per log dir (a resumed run keeps the first snapshot)."""
+    dst = os.path.join(log_dir, "code")
+    if os.path.exists(dst):
+        return
+    pkg = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(pkg)
+    ignore = shutil.ignore_patterns("__pycache__", "*.pyc", "build", "*.so",
+                                    "*.o")
+    try:
+        os.makedirs(dst)
+        shutil.copytree(pkg, os.path.join(dst, "esrnerf_tpu_torch"),
+                        ignore=ignore)
+        if os.path.isdir(os.path.join(repo, "cfg")):
+            shutil.copytree(os.path.join(repo, "cfg"),
+                            os.path.join(dst, "cfg"), ignore=ignore)
+    except OSError as e:  # a failed snapshot must not stop a training run
+        print(f"code snapshot failed ({e!r}); continuing")
+
+
+def main(argv=None):
+    """Run one stage; returns the stage object (its ``timings`` and model
+    stay readable after the run)."""
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("-cn", "--config-name", required=True,
+                        help="path to a composed YAML config")
+    parser.add_argument("overrides", nargs="*",
+                        help="dot-overrides like app.phase=train")
+    args = parser.parse_args(argv)
+
+    from esrnerf_tpu_torch.apps.base import device_from_cfg, import_class
+    from esrnerf_tpu_torch.config import customize_cfg, load_cfg, save_cfg
+    from esrnerf_tpu_torch.utils.logging import seed_everything
+
+    cfg = customize_cfg(load_cfg(args.config_name, args.overrides))
+    cls = cfg.app["cls"]
+    if cls in NOT_PORTED:
+        raise NotImplementedError(
+            f"stage '{cls}' is not ported to PyTorch yet (see ROADMAP.md); "
+            "run it with the JAX package's run.py")
+    cls_path = STAGE_REGISTRY.get(cls)
+    if cls_path is None:
+        raise KeyError(f"unknown app.cls '{cls}'")
+    device_from_cfg(cfg)  # raise before any output without CUDA
+
+    os.makedirs(cfg.log["dir"], exist_ok=True)
+    save_cfg(cfg)
+    _snapshot_code(cfg.log["dir"])
+    seed_everything(cfg.system["seed"])
+
+    method = import_class(cls_path)(cfg)
+    method.load_dataset()
+    method.load_model()
+    method.process()
+    if method.logger is not None:
+        method.logger.finish()
+    return method
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

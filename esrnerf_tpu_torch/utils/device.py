@@ -1,9 +1,10 @@
-"""Device selection for the port's entry points, and small device
-constants."""
+"""Device selection for the port's entry points, small device constants,
+and timing of calls on a device."""
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Sequence
 
 import torch
@@ -23,6 +24,27 @@ def resolve_device(device="cuda") -> torch.device:
             "PyTorch versions on the CPU"
         )
     return dev
+
+
+def time_calls(fn, device, reps: int = 10) -> float:
+    """Mean seconds per call of ``fn()`` over ``reps`` calls after one
+    warm-up call: CUDA events around the calls on the card, the host clock
+    elsewhere."""
+    dev = torch.device(device)
+    fn()
+    if dev.type == "cuda":
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps
 
 
 @functools.lru_cache(maxsize=None)

@@ -78,3 +78,32 @@ def test_gather_kernel(dev, raw):
     want = splatops._gather_plain(table, base, w, offs, raw, nv)
     _close(got, want, 0, 0)
     assert float(got[4096:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tight", [True, False])
+def test_gather_grid_kernel(dev, tight):
+    from esrnerf_tpu_torch.ops import gather_bench as gb
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.scripts.bench_gather_grid import make_inputs
+
+    a = {k: torch.as_tensor(v, device=dev)
+         for k, v in make_inputs(tight, nch=4).items()}
+    # lanes below, inside and past their windows
+    a["idx"][::3] -= 700
+    n0 = kernels.launches["gather_grid"]
+    got = gb.gather_grid(a["tbl"], a["idx"], a["w0"], a["gf"], a["gl"])
+    assert kernels.launches["gather_grid"] == n0 + 1
+    want = gb._gather_grid_plain(a["tbl"].reshape(-1), a["idx"], a["w0"],
+                                 a["gf"], a["gl"])
+    _close(got, want, 0, 0)
+
+
+@pytest.mark.parametrize("mode", ["dma", "build", "full"])
+def test_gather_parts_kernel(dev, mode):
+    from esrnerf_tpu_torch.ops import gather_bench as gb
+    from esrnerf_tpu_torch.scripts.bench_gather_parts import make_table
+
+    tbl = torch.as_tensor(make_table(3), device=dev)
+    got = gb.gather_parts(tbl, mode, 3)
+    want = gb._gather_parts_plain(tbl.reshape(-1), mode, 3)
+    _close(got, want, 0, 1e-6)

@@ -54,7 +54,8 @@ def test_port_never_imports_jax_or_the_reference():
 def test_kernel_sources_present_and_nothing_built_at_import():
     from esrnerf_tpu_torch.ops import kernels
 
-    for src in (*kernels.SOURCES.values(), "common.cuh"):
+    for src in (*kernels.SOURCES.values(), *kernels.HOST_SOURCES.values(),
+                "common.cuh"):
         assert os.path.exists(os.path.join(kernels.CSRC, src)), src
     assert not kernels._libs  # nothing loaded by importing the port
 
