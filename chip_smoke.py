@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
    at the fine step's full-width shapes, on inputs from a seeded numpy
    generator, with timings (CUDA events), the least time the card could
    take (bound) and, where one exists, one PyTorch library call computing
-   the same function;
+   the same function; and the K-3 row again with every value zero (the
+   atomics' share of its time);
 4. check: one small fine step on the card against the same step on the CPU
    (plain versions): loss terms and every group's gradient;
 5. train: the fine-stage train step at full width (cfg/app/fine.yaml: 256^3
@@ -22,7 +23,12 @@ Phases, in order; any failure exits non-zero:
    timed steps; asserts overflow 0, finite losses and that every kernel
    launched during the timed steps; then a torch.profiler breakdown of
    three more steps (one with the TV terms, as in training) by phase and
-   by kernel;
+   by kernel, and each kernel's in-step device ms and launches per step;
+   then one more step with the K-3/K-4 launch wrappers wrapped here (not
+   in the package) to record every launch's inputs and call site, and a
+   replay of each captured launch: kernel against plain version (K-3 at
+   rtol 5e-4 / atol 5e-5 of the plain result's max, K-4 bitwise), times
+   with the L2 warm and cold, and bound;
 6. gather benchmarks: the two microbenchmark entry points
    (esrnerf_tpu_torch.scripts.bench_gather_grid, K-5, tight and random
    spans; bench_gather_parts, K-6, modes dma, build and full) run in
@@ -97,8 +103,11 @@ def sync(device) -> None:
 def time_ms(fn, device, runs: int = 5, calls: int = 10,
             warmup: int = 2) -> float:
     """Median over ``runs`` of the mean time of ``calls`` back-to-back
-    calls of ``fn()`` in ms: CUDA events around the calls on the card, the
-    host clock around synchronised calls elsewhere."""
+    calls of ``fn()`` in ms. On the card: CUDA events around the calls,
+    after a spin kernel (``torch.cuda._sleep``) that holds the card while
+    the host enqueues them, so the events time the device's work and not
+    the host's launch cost (as long as the calls fit the launch queue);
+    elsewhere the host clock around synchronised calls."""
     import torch
 
     for _ in range(warmup):
@@ -106,6 +115,15 @@ def time_ms(fn, device, runs: int = 5, calls: int = 10,
     times = []
     for _ in range(runs):
         if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(device)
+            host_s = time.perf_counter() - t0  # one call, host and device
+            # ~2e9 cycles a second at the H100's boost clock; fewer at a
+            # lower clock only lengthens the spin
+            torch.cuda._sleep(int(min(2e9, (2 * calls * host_s + 1e-3)
+                                      * 2e9)))
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -120,6 +138,35 @@ def time_ms(fn, device, runs: int = 5, calls: int = 10,
                 fn()
             times.append((time.perf_counter() - t0) * 1e3 / calls)
     return float(np.median(times))
+
+
+def time_cold_ms(fn, device, calls: int = 10) -> float:
+    """Median device time in ms of one call of ``fn()`` with the L2 cold:
+    each of ``calls`` calls follows a 256 MB write that evicts the 50 MB
+    L2, with CUDA events around the call alone, behind a spin kernel as in
+    ``time_ms``. Elsewhere (no L2 to evict) ``time_ms``."""
+    import torch
+
+    if device.type != "cuda":
+        return time_ms(fn, device)
+    flush = torch.empty(64 << 20, device=device)
+    fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    flush.zero_()
+    fn()
+    torch.cuda.synchronize(device)
+    host_s = time.perf_counter() - t0
+    torch.cuda._sleep(int(min(2e9, (2 * calls * host_s + 1e-3) * 2e9)))
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+    for a, b in ev:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    ev[-1][1].synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -143,6 +190,17 @@ def assert_close(name, got, want, rtol, atol) -> float:
             f"{name}: {int(bad.sum())} elements outside rtol={rtol} "
             f"atol={atol}; max abs err {max_err(got, want):.3e}")
     return max_err(got, want)
+
+
+def assert_splat_close(name, got, want) -> float:
+    """K-3 against its plain version on the plain result's own scale:
+    rtol 5e-4, atol 5e-5 x max |want|. The step's gradients are 1e-15 to
+    1e-5, where a fixed atol would pass a kernel that wrote nothing; an
+    all-zero plain result fails too, as it could not tell."""
+    scale = float(want.abs().max())
+    if not scale > 0.0:
+        raise AssertionError(f"{name}: the plain version's result is all zero")
+    return assert_close(name, got, want, 5e-4, 5e-5 * scale)
 
 
 # ------------------------------------------------------------- phase 3
@@ -233,6 +291,14 @@ def check_kernels(device, N, S, M1, n_cells, K2, grid_res, seed=0):
                 device),
         4 * M1 + 4 * 8 * M1 + 4 * n_cells, 8 * M1,
         time_ms(lambda: out_p.index_add_(0, idx_all, vals_all), device))
+    # the atomics' share of that time: with every value an exact zero the
+    # launch still reads base and vals and finds the runs, but adds nothing
+    zvals = torch.zeros_like(vals)
+    splat_z = ((lambda: kernels.splat(base, zvals, offs, out_k)) if kern
+               else (lambda: splatops._splat_plain(base, zvals, offs, out_k)))
+    emit({"phase": "splat_zero_vals", "ms": rows[-1]["ms"],
+          "zero_vals_ms": time_ms(splat_z, device)})
+    del zvals
 
     # K-4 weighted: the fused off/emo color-grid read (C = 12, 8 corners)
     # at the march's cell-sorted points; rows past n_valid are pad
@@ -246,7 +312,7 @@ def check_kernels(device, N, S, M1, n_cells, K2, grid_res, seed=0):
           if kern else (lambda: splatops._gather_plain(
               table, gbase, wts, offs, False, nv_t)))
     gw_p = lambda: splatops._gather_plain(table, gbase, wts, offs, False, nv_t)
-    err = assert_close("gather_weighted", gw(), gw_p(), 1e-6, 1e-7)
+    err = assert_close("gather_weighted", gw(), gw_p(), 0.0, 0.0)
     n_live = -(-nv // splatops.GATHER_CHUNK) * splatops.GATHER_CHUNK
     idx_w = torch.clamp(gbase.long()[:, None] + on(np.asarray(offs))[None, :],
                         0, n_cells - 1)
@@ -444,7 +510,9 @@ def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12):
     # idle share against the unprofiled step time
     res["idle_share"] = max(0.0, 1 - prof["device_busy_ms_per_step"]
                             / res["step_ms"])
-    return res, launches
+    captured = capture_launches(lambda: run(200))
+    sync(device)
+    return res, launches, captured
 
 
 def profile_steps(device, run, n=3):
@@ -493,6 +561,172 @@ def profile_steps(device, run, n=3):
             "device_launches_per_step": sum(e.count for e in ev) / n,
             "phases_ms_per_step": phases,
             "port_kernels_ms_per_step": ours, "top": top}
+
+
+# ------------------------------------------------- captured step launches
+
+# functions that only pass a launch through: a call site is named by the
+# first frame above them
+_FUNNELS = {"sorted_streams_splat", "sorted_corner_gather", "trilinear_splat",
+            "displaced_taps_splat", "_sorted_trilinear_sample_impl",
+            "_displaced_taps_fwd_impl"}
+_CAPTURED = ("splat", "gather_weighted", "gather_raw")
+
+
+def call_site(depth: int = 2) -> str:
+    """Up to ``depth`` frames of the port's package that lead to the
+    current call, innermost first, leaving out ``ops/kernels.py`` and the
+    pass-through functions in ``_FUNNELS``: ``"path:line Qual.name < ..."``.
+    A launch from an autograd backward shows the backward's frame."""
+    import esrnerf_tpu_torch
+
+    pkg = os.path.dirname(esrnerf_tpu_torch.__file__)
+    root = os.path.dirname(pkg)
+    f, out = sys._getframe(1), []
+    while f is not None and len(out) < depth:
+        fn, code = f.f_code.co_filename, f.f_code
+        if (fn.startswith(pkg) and not fn.endswith("kernels.py")
+                and code.co_name not in _FUNNELS):
+            out.append(f"{os.path.relpath(fn, root)}:{f.f_lineno} "
+                       f"{code.co_qualname}")
+        f = f.f_back
+    return " < ".join(out)
+
+
+def capture_launches(fn):
+    """Run ``fn()`` with the K-3/K-4 launch wrappers of ``ops/kernels.py``
+    wrapped (here only, restored after): each launch records its kernel,
+    its call site and clones of its arguments (``out``, the splat table
+    accumulated into, only by shape) before it runs."""
+    import inspect
+
+    import torch
+
+    from esrnerf_tpu_torch.ops import kernels
+
+    records, orig = [], {n: getattr(kernels, n) for n in _CAPTURED}
+
+    def wrap(name):
+        f = orig[name]
+        sig = inspect.signature(f)
+
+        def recording(*args, **kwargs):
+            a = sig.bind(*args, **kwargs)
+            a.apply_defaults()
+            rec = {"kernel": name, "site": call_site()}
+            for k, v in a.arguments.items():
+                if k == "out":
+                    rec["out_shape"] = tuple(v.shape)
+                elif torch.is_tensor(v):
+                    rec[k] = v.detach().clone()
+                else:
+                    rec[k] = (tuple(int(o) for o in v) if k == "offsets"
+                              else v)
+            records.append(rec)
+            return f(*args, **kwargs)
+        return recording
+
+    for n in _CAPTURED:
+        setattr(kernels, n, wrap(n))
+    try:
+        fn()
+    finally:
+        for n, f in orig.items():
+            setattr(kernels, n, f)
+    return records
+
+
+def replay_launches(records, device):
+    """Each captured launch again: the kernel against its plain version on
+    the captured inputs (K-3 on a zero table within ``assert_splat_close``,
+    K-4 bitwise), its time and the plain version's (10 back-to-back calls,
+    CUDA events), its time with the L2 cold before each call (the step
+    meets most tables cold; ``time_cold_ms``), and its bound from the
+    captured shapes and n_valid
+    (inputs of the live rows read once; the distinct table rows the splat
+    adds to written once, the distinct rows the gather reads read once, the
+    gather's output written once). Returns one row per launch."""
+    import torch
+
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.ops import splat as splatops
+
+    kern = device.type == "cuda"
+    rows = []
+    for i, r in enumerate(records):
+        base, offs, nv = r["base"], r["offsets"], r["n_valid"]
+        M = base.shape[0]
+        n_live = M if nv is None else min(M, int(nv))
+        offs_t = torch.as_tensor(offs, device=device)
+        label = f"{r['kernel']} #{i} {r['site']}"
+        if r["kernel"] == "splat":
+            vals = r["vals"]
+            S, C, _ = vals.shape
+            n_cells = r["out_shape"][0]
+            zeros = lambda: torch.zeros(r["out_shape"], device=device)
+            fn = ((lambda o: kernels.splat(base, vals, offs, o, nv)) if kern
+                  else (lambda o: splatops._splat_plain(base, vals, offs, o,
+                                                        nv)))
+            plain = lambda o: splatops._splat_plain(base, vals, offs, o, nv)
+            want = plain(zeros())
+            scale = float(want.abs().max())
+            err = assert_splat_close(label, fn(zeros()), want)
+            del want
+            o_k, o_p = zeros(), zeros()
+            ms = time_ms(lambda: fn(o_k), device)
+            cold_ms = time_cold_ms(lambda: fn(o_k), device)
+            plain_ms = time_ms(lambda: plain(o_p), device)
+            rows_hit = base[:n_live].long()[None, :] + offs_t[:, None]
+            rows_hit = rows_hit[(rows_hit >= 0) & (rows_hit < n_cells)]
+            uniq = int(torch.unique(rows_hit).numel())
+            nbytes = 4 * (n_live + S * C * n_live + C * uniq)
+            nops = S * C * n_live
+            del o_k, o_p
+            # share of live updates that join the run of an earlier lane of
+            # their warp (equal base): the atomics the kernel combines away
+            b = base[:n_live].long()
+            lane0 = torch.arange(n_live, device=device) % 32 == 0
+            heads = lane0 | torch.cat([b.new_ones(1, dtype=torch.bool),
+                                       b[1:] != b[:-1]])
+            extra = {"run_share": 1 - int(heads.sum()) / max(n_live, 1),
+                     "scale": scale}
+        else:
+            table = r["table"]
+            R, C = table.shape
+            raw = r["kernel"] == "gather_raw"
+            w = None if raw else r["weights"]
+            S = len(offs)
+            if kern:
+                fn = ((lambda: kernels.gather_raw(table, base, offs, nv))
+                      if raw else (lambda: kernels.gather_weighted(
+                          table, base, w, offs, nv)))
+            else:
+                fn = lambda: splatops._gather_plain(table, base, w, offs, raw,
+                                                    nv)
+            plain = lambda: splatops._gather_plain(table, base, w, offs, raw,
+                                                   nv)
+            err = assert_close(label, fn(), plain(), 0.0, 0.0)
+            ms, plain_ms = time_ms(fn, device), time_ms(plain, device)
+            cold_ms = time_cold_ms(fn, device)
+            if nv is not None:
+                g = splatops.GATHER_CHUNK
+                n_live = min(M, -(-int(nv) // g) * g)
+            idx = torch.clamp(base[:n_live].long()[:, None] + offs_t[None, :],
+                              0, R - 1)
+            uniq = int(torch.unique(idx).numel())
+            out_w = S if raw else C
+            nbytes = 4 * (n_live * (1 + (0 if raw else S)) + uniq * C
+                          + M * out_w)
+            nops = 0 if raw else 2 * S * C * n_live
+            extra = {}
+        b, by = bound_ms(nbytes, nops)
+        row = {"kernel": r["kernel"], "site": r["site"], "S": S, "C": C,
+               "M": M, "n_valid": None if nv is None else int(nv),
+               "max_abs_err": err, "ms": ms, "cold_ms": cold_ms,
+               "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, **extra}
+        rows.append(row)
+        emit({"phase": "captured", **row})
+    return rows
 
 
 # ------------------------------------------------------------- phase 6
@@ -817,7 +1051,7 @@ def main() -> int:
 
     emit({"phase": "check", **check_small_step(device)})
 
-    res, launches = train_full_width(device, NUM_VOXELS, N_RAYS)
+    res, launches, captured = train_full_width(device, NUM_VOXELS, N_RAYS)
     res["device"] = smi
     emit({"phase": "train", **res})
     missing = [r["name"] for r in rows if launches[r["name"]] == 0]
@@ -825,7 +1059,16 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     for r in rows:
         r["launches"] = launches[r["name"]]
-    del res
+    in_step = res["profile"]["port_kernels_ms_per_step"]
+    emit({"phase": "in_step", "device": smi, "kernels": {
+        r["name"]: {"ms_per_step": in_step[r["name"]],
+                    "launches_per_step": res["launches_per_step"][r["name"]]}
+        for r in rows}})
+    seen = {r["kernel"] for r in captured}
+    if seen != set(_CAPTURED):
+        raise AssertionError(f"captured step launched only {sorted(seen)}")
+    replay_launches(captured, device)
+    del res, captured
     torch.cuda.empty_cache()
 
     gb_rows = check_gather_bench(device)

@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_splat_gather_cases import (GATHER_CASES, SPLAT_CASES,
+                                           gather_case, splat_case)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -78,6 +81,41 @@ def test_gather_kernel(dev, raw):
     want = splatops._gather_plain(table, base, w, offs, raw, nv)
     _close(got, want, 0, 0)
     assert float(got[4096:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("name", list(SPLAT_CASES))
+def test_splat_kernel_cases(dev, name):
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.ops import splat as splatops
+
+    base, vals, offs, n_cells, n_valid = splat_case(name)
+    base, vals = torch.as_tensor(base, device=dev), torch.as_tensor(
+        vals, device=dev)
+    nv = None if n_valid is None else torch.tensor(n_valid, device=dev)
+    n0 = kernels.launches["splat"]
+    got = splatops.sorted_streams_splat(base, vals, offs, n_cells, nv)
+    assert kernels.launches["splat"] == n0 + 1
+    want = splatops._splat_plain(
+        base, vals, offs, torch.zeros((n_cells, vals.shape[1]), device=dev),
+        nv)
+    _close(got, want, 5e-4, 5e-5)
+
+
+@pytest.mark.parametrize("name", list(GATHER_CASES))
+def test_gather_kernel_cases(dev, name):
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.ops import splat as splatops
+
+    table, base, w, offs, raw, n_valid = gather_case(name)
+    table, base = torch.as_tensor(table, device=dev), torch.as_tensor(
+        base, device=dev)
+    w = None if raw else torch.as_tensor(w, device=dev)
+    nv = None if n_valid is None else torch.tensor(n_valid, device=dev)
+    key = "gather_raw" if raw else "gather_weighted"
+    n0 = kernels.launches[key]
+    got = splatops.sorted_corner_gather(table, base, w, offs, raw, nv)
+    assert kernels.launches[key] == n0 + 1
+    _close(got, splatops._gather_plain(table, base, w, offs, raw, nv), 0, 0)
 
 
 @pytest.mark.parametrize("tight", [True, False])
