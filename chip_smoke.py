@@ -13,8 +13,10 @@ Phases, in order; any failure exits non-zero:
    at the fine step's full-width shapes, on inputs from a seeded numpy
    generator, with timings (CUDA events), the least time the card could
    take (bound) and, where one exists, one PyTorch library call computing
-   the same function; and the K-3 row again with every value zero (the
-   atomics' share of its time);
+   the same function; K-1 bitwise against its plain version, K-2 bitwise
+   against the script's own sequential float32 oracle, and the scan's
+   cp.async route timed beside its TMA route; and the K-3 row again with
+   every value zero (the atomics' share of its time);
 4. check: one small fine step on the card against the same step on the CPU
    (plain versions): loss terms and every group's gradient;
 5. train: the fine-stage train step at full width (cfg/app/fine.yaml: 256^3
@@ -24,11 +26,12 @@ Phases, in order; any failure exits non-zero:
    launched during the timed steps; then a torch.profiler breakdown of
    three more steps (one with the TV terms, as in training) by phase and
    by kernel, and each kernel's in-step device ms and launches per step;
-   then one more step with the K-3/K-4 launch wrappers wrapped here (not
+   then one more step with the K-1..K-4 launch wrappers wrapped here (not
    in the package) to record every launch's inputs and call site, and a
    replay of each captured launch: kernel against plain version (K-3 at
-   rtol 5e-4 / atol 5e-5 of the plain result's max, K-4 bitwise), times
-   with the L2 warm and cold, and bound;
+   rtol 5e-4 / atol 5e-5 of the plain result's max, K-4 and K-1 bitwise,
+   K-2 bitwise against the oracle), times with the L2 warm and cold, and
+   bound;
 6. gather benchmarks: the two microbenchmark entry points
    (esrnerf_tpu_torch.scripts.bench_gather_grid, K-5, tight and random
    spans; bench_gather_parts, K-6, modes dma, build and full) run in
@@ -207,16 +210,64 @@ def assert_splat_close(name, got, want) -> float:
 
 
 def _scan_inputs(rng, N, S):
-    """Per ray a band of ~24 nonzero alphas at a random depth (what the
-    fine march's pre-filtered alphas look like), zeros elsewhere."""
-    alpha = np.zeros((S, N), np.float32)
+    """``[N, S]`` alphas with, per ray, a band of 24 nonzero alphas in
+    [0, 0.5) at a random depth (what the fine march's pre-filtered alphas
+    look like; the transmittance ends near the 1e-3 early exit), zeros
+    elsewhere; and the cotangents of w and last."""
+    alpha = np.zeros((N, S), np.float32)
     start = rng.integers(0, max(1, S - 24), N)
     for j in range(24):
-        rows = np.minimum(start + j, S - 1)
-        alpha[rows, np.arange(N)] = rng.uniform(0, 0.5, N)
-    ctw = rng.normal(size=(S, N)).astype(np.float32)
+        cols = np.minimum(start + j, S - 1)
+        alpha[np.arange(N), cols] = rng.uniform(0, 0.5, N)
+    ctw = rng.normal(size=(N, S)).astype(np.float32)
     ctl = rng.normal(size=(N,)).astype(np.float32)
     return alpha, ctw, ctl
+
+
+def scan_fwd_oracle(alpha, ee):
+    """K-1 as a sequential float32 loop over the samples, vectorised over
+    the rays of ``alpha [N, S]``: ``(w, t_in [N, S], last [N])``."""
+    a = np.ascontiguousarray(np.asarray(alpha, np.float32).T)
+    ee, one, zero = np.float32(ee), np.float32(1), np.float32(0)
+    T = np.ones(a.shape[1], np.float32)
+    w, tin = np.empty_like(a), np.empty_like(a)
+    for s in range(a.shape[0]):
+        a_eff = np.where(T >= ee, a[s], zero)
+        tin[s] = T
+        w[s] = a_eff * T
+        T = T * (one - a_eff)
+    return w.T, tin.T, T
+
+
+def scan_bwd_oracle(alpha, tin, ctw, ctl, ee):
+    """K-2 as a sequential float32 loop from the last sample to the first:
+    ``d_alpha [N, S]``."""
+    a, t, c = (np.ascontiguousarray(np.asarray(x, np.float32).T)
+               for x in (alpha, tin, ctw))
+    ee, one, zero = np.float32(ee), np.float32(1), np.float32(0)
+    d = np.zeros_like(a)
+    if a.shape[0] == 0:
+        return d.T
+    A = (t[-1] * (one - np.where(t[-1] >= ee, a[-1], zero))) * ctl
+    for s in range(a.shape[0] - 1, -1, -1):
+        live = t[s] >= ee
+        a_eff = np.where(live, a[s], zero)
+        grad = t[s] * c[s] - A / np.maximum(one - a_eff, np.float32(1e-10))
+        d[s] = np.where(live, grad, zero)
+        A = A + (a_eff * t[s]) * c[s]
+    return d.T
+
+
+def check_scan_oracle(name, got, want_np, device):
+    """``got`` bitwise equal to the oracle's ``want_np`` on the card; the
+    CPU's plain versions (carrying cumprod in double, summing the tail as a
+    cumsum difference) within rtol 1e-4 / atol 1e-5."""
+    import torch
+
+    want = torch.as_tensor(np.ascontiguousarray(want_np), device=got.device)
+    if device.type == "cuda":
+        return assert_close(name, got, want, 0.0, 0.0)
+    return assert_close(name, got, want, 1e-4, 1e-5)
 
 
 def check_kernels(device, N, S, M1, n_cells, K2, grid_res, seed=0):
@@ -247,27 +298,59 @@ def check_kernels(device, N, S, M1, n_cells, K2, grid_res, seed=0):
     scan_f = kernels.scan_fwd if kern else scanops._fwd_plain
     scan_b = kernels.scan_bwd if kern else scanops._bwd_plain
 
-    # K-1 / K-2: [S, N] transmittance scan
+    # K-1 / K-2: the [N, S] transmittance scan. K-1 bitwise against its
+    # plain version (and the oracle), K-2 bitwise against this script's
+    # sequential float32 oracle and within rtol 1e-4 / atol 1e-5 of its
+    # plain version (a cumsum difference)
     alpha, ctw, ctl = _scan_inputs(rng, N, S)
-    a_sn, ctw_sn, ctl_t = on(alpha), on(ctw), on(ctl)
+    a_ns, ctw_ns, ctl_t = on(alpha), on(ctw), on(ctl)
     ee = 1e-3
-    w_k, tin_k, last_k = scan_f(a_sn, ee)
-    w_p, tin_p, last_p = scanops._fwd_plain(a_sn, ee)
-    err = max(assert_close("scan_fwd w", w_k, w_p, 1e-5, 1e-6),
-              assert_close("scan_fwd t_in", tin_k, tin_p, 1e-5, 1e-6),
-              assert_close("scan_fwd last", last_k, last_p, 1e-5, 1e-6))
+    w_k, tin_k, last_k = scan_f(a_ns, ee)
+    w_p, tin_p, last_p = scanops._fwd_plain(a_ns, ee)
+    err = max(assert_close("scan_fwd w", w_k, w_p, 0.0, 0.0),
+              assert_close("scan_fwd t_in", tin_k, tin_p, 0.0, 0.0),
+              assert_close("scan_fwd last", last_k, last_p, 0.0, 0.0))
+    w_o, tin_o, last_o = scan_fwd_oracle(alpha, ee)
+    oracle = {"scan_fwd": max(check_scan_oracle(f"scan_fwd {k} oracle", g, o,
+                                                device)
+                              for k, g, o in (("w", w_k, w_o),
+                                              ("t_in", tin_k, tin_o),
+                                              ("last", last_k, last_o)))}
     sn = S * N
-    row("scan_fwd", err, time_ms(lambda: scan_f(a_sn, ee), device),
-        time_ms(lambda: scanops._fwd_plain(a_sn, ee), device),
+    row("scan_fwd", err, time_ms(lambda: scan_f(a_ns, ee), device),
+        time_ms(lambda: scanops._fwd_plain(a_ns, ee), device),
         4 * (3 * sn + N), 5 * sn, None)
-    da_k = scan_b(a_sn, tin_p, ctw_sn, ctl_t, ee)
-    da_p = scanops._bwd_plain(a_sn, tin_p, ctw_sn, ctl_t, ee)
+    da_k = scan_b(a_ns, tin_k, ctw_ns, ctl_t, ee)
+    da_p = scanops._bwd_plain(a_ns, tin_k, ctw_ns, ctl_t, ee)
     err = assert_close("scan_bwd", da_k, da_p, 1e-4, 1e-5)
+    oracle["scan_bwd"] = check_scan_oracle(
+        "scan_bwd oracle", da_k,
+        scan_bwd_oracle(alpha, tin_o, ctw, ctl, ee), device)
     row("scan_bwd", err,
-        time_ms(lambda: scan_b(a_sn, tin_p, ctw_sn, ctl_t, ee), device),
-        time_ms(lambda: scanops._bwd_plain(a_sn, tin_p, ctw_sn, ctl_t, ee),
+        time_ms(lambda: scan_b(a_ns, tin_k, ctw_ns, ctl_t, ee), device),
+        time_ms(lambda: scanops._bwd_plain(a_ns, tin_k, ctw_ns, ctl_t, ee),
                 device),
         4 * (4 * sn + N), 9 * sn, None)
+    routes = {}
+    if kern:
+        # the cp.async route at the same shape: alpha from a base 4 bytes
+        # past a 16-byte boundary (S % 4 == 0 and aligned bases take TMA)
+        a_off = torch.empty(sn + 1, device=device)[1:].view(N, S)
+        a_off.copy_(a_ns)
+        cp_f = lambda: kernels.scan_fwd(a_off, ee)
+        cp_b = lambda: kernels.scan_bwd(a_off, tin_k, ctw_ns, ctl_t, ee)
+        for g, k in zip(cp_f(), (w_k, tin_k, last_k)):
+            assert_close("scan_fwd cp.async route", g, k, 0.0, 0.0)
+        assert_close("scan_bwd cp.async route", cp_b(), da_k, 0.0, 0.0)
+        routes = {"tma": kernels.scan_tma_ok(S, a_ns),
+                  "cp_async_route": not kernels.scan_tma_ok(S, a_off),
+                  "cp_async_fwd_ms": time_ms(cp_f, device),
+                  "cp_async_bwd_ms": time_ms(cp_b, device),
+                  "ring_fwd": kernels.scan_config(S, N, False),
+                  "ring_bwd": kernels.scan_config(S, N, True)}
+    emit({"phase": "scan_checks", "N": N, "S": S, "oracle_max_abs_err": oracle,
+          **routes})
+    del w_k, tin_k, last_k, w_p, tin_p, last_p, da_k, da_p
 
     # K-3: the SDF grid gradient (grid_sample_3d's adjoint): 8 corner
     # streams of M1 updates into the full grid
@@ -569,8 +652,10 @@ def profile_steps(device, run, n=3):
 # first frame above them
 _FUNNELS = {"sorted_streams_splat", "sorted_corner_gather", "trilinear_splat",
             "displaced_taps_splat", "_sorted_trilinear_sample_impl",
-            "_displaced_taps_fwd_impl"}
-_CAPTURED = ("splat", "gather_weighted", "gather_raw")
+            "_displaced_taps_fwd_impl", "scan_forward", "scan_backward",
+            "alpha2weights_scan"}
+_CAPTURED = ("splat", "gather_weighted", "gather_raw", "scan_fwd",
+             "scan_bwd")
 
 
 def call_site(depth: int = 2) -> str:
@@ -594,7 +679,7 @@ def call_site(depth: int = 2) -> str:
 
 
 def capture_launches(fn):
-    """Run ``fn()`` with the K-3/K-4 launch wrappers of ``ops/kernels.py``
+    """Run ``fn()`` with the K-1..K-4 launch wrappers of ``ops/kernels.py``
     wrapped (here only, restored after): each launch records its kernel,
     its call site and clones of its arguments (``out``, the splat table
     accumulated into, only by shape) before it runs."""
@@ -639,7 +724,7 @@ def capture_launches(fn):
 def replay_launches(records, device):
     """Each captured launch again: the kernel against its plain version on
     the captured inputs (K-3 on a zero table within ``assert_splat_close``,
-    K-4 bitwise), its time and the plain version's (10 back-to-back calls,
+    K-4 bitwise; the scan's launches in ``replay_scan``), its time and the plain version's (10 back-to-back calls,
     CUDA events), its time with the L2 cold before each call (the step
     meets most tables cold; ``time_cold_ms``), and its bound from the
     captured shapes and n_valid
@@ -654,11 +739,14 @@ def replay_launches(records, device):
     kern = device.type == "cuda"
     rows = []
     for i, r in enumerate(records):
+        label = f"{r['kernel']} #{i} {r['site']}"
+        if r["kernel"] in ("scan_fwd", "scan_bwd"):
+            rows.append(replay_scan(r, label, device))
+            continue
         base, offs, nv = r["base"], r["offsets"], r["n_valid"]
         M = base.shape[0]
         n_live = M if nv is None else min(M, int(nv))
         offs_t = torch.as_tensor(offs, device=device)
-        label = f"{r['kernel']} #{i} {r['site']}"
         if r["kernel"] == "splat":
             vals = r["vals"]
             S, C, _ = vals.shape
@@ -727,6 +815,52 @@ def replay_launches(records, device):
         rows.append(row)
         emit({"phase": "captured", **row})
     return rows
+
+
+def replay_scan(r, label, device):
+    """One captured K-1/K-2 launch again: K-1 bitwise against its plain
+    version, K-2 bitwise against this script's oracle and within rtol 1e-4
+    / atol 1e-5 of its plain version; its time warm, cold and plain's; and
+    its bound from the captured shapes (inputs read once, outputs written
+    once). ``S`` is samples per ray and ``M`` rays."""
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.ops import scan as scanops
+
+    kern = device.type == "cuda"
+    a, ee = r["alpha"], r["early_exit"]
+    N, S = a.shape
+    sn = N * S
+    if r["kernel"] == "scan_fwd":
+        fn = ((lambda: kernels.scan_fwd(a, ee)) if kern
+              else (lambda: scanops._fwd_plain(a, ee)))
+        plain = lambda: scanops._fwd_plain(a, ee)
+        err = max(assert_close(f"{label} {k}", g, p, 0.0, 0.0)
+                  for k, g, p in zip(("w", "t_in", "last"), fn(), plain()))
+        nbytes, nops = 4 * (3 * sn + N), 5 * sn
+    else:
+        tin, ctw, ctl = r["t_in"], r["ct_w"], r["ct_last"]
+        fn = ((lambda: kernels.scan_bwd(a, tin, ctw, ctl, ee)) if kern
+              else (lambda: scanops._bwd_plain(a, tin, ctw, ctl, ee)))
+        plain = lambda: scanops._bwd_plain(a, tin, ctw, ctl, ee)
+        got = fn()
+        err = assert_close(label, got, plain(), 1e-4, 1e-5)
+        check_scan_oracle(f"{label} oracle", got, scan_bwd_oracle(
+            *(x.cpu().numpy() for x in (a, tin, ctw, ctl)), ee), device)
+        del got
+        nbytes, nops = 4 * (4 * sn + N), 9 * sn
+    ms, plain_ms = time_ms(fn, device), time_ms(plain, device)
+    cold_ms = time_cold_ms(fn, device)
+    b, by = bound_ms(nbytes, nops)
+    # what the step's data holds that synthetic inputs may not: opaque
+    # samples (alpha exactly 1) and zero cotangents
+    shares = {"alpha_one_share": float((a == 1).float().mean())}
+    if r["kernel"] == "scan_bwd":
+        shares["ct_w_zero_share"] = float((ctw == 0).float().mean())
+    row = {"kernel": r["kernel"], "site": r["site"], "S": S, "C": 1, "M": N,
+           "n_valid": None, "max_abs_err": err, "ms": ms, "cold_ms": cold_ms,
+           "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, **shares}
+    emit({"phase": "captured", **row})
+    return row
 
 
 # ------------------------------------------------------------- phase 6

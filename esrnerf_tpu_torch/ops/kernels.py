@@ -53,10 +53,12 @@ launches: Dict[str, int] = {
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _LL_P = ctypes.POINTER(ctypes.c_longlong)
+_I_P = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "scan": {
-        "esr_scan_fwd": [_vp, _vp, _vp, _vp, _i, _i, _f, _vp],
-        "esr_scan_bwd": [_vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
+        "esr_scan_fwd": [_vp, _vp, _vp, _vp, _i, _i, _f, _i, _vp],
+        "esr_scan_bwd": [_vp, _vp, _vp, _vp, _vp, _i, _i, _f, _i, _vp],
+        "esr_scan_config": [_i, _i, _i, _I_P, _I_P],
     },
     "splat": {
         "esr_splat": [_vp, _vp, _LL_P, _i, _i, _i, _ll, _vp, _vp, _vp],
@@ -223,35 +225,62 @@ def _nv(n_valid: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
     return nv.contiguous()
 
 
-def scan_fwd(alpha_sn: torch.Tensor, early_exit: float):
-    """K-1 on ``alpha_sn [S, N]``: returns ``(w, t_in [S, N], last [N])``."""
-    _require(alpha_sn, torch.float32, "scan_fwd alpha")
-    S, N = alpha_sn.shape
-    w = torch.empty_like(alpha_sn)
-    t_in = torch.empty_like(alpha_sn)
-    last = torch.empty((N,), dtype=torch.float32, device=alpha_sn.device)
+def scan_tma_ok(S: int, *tensors: torch.Tensor) -> bool:
+    """Whether the scan kernels move these ``[N, S]`` f32 tensors by TMA:
+    rows a multiple of 16 bytes (S a multiple of 4) and 16-byte aligned
+    bases. Otherwise they take the cp.async route."""
+    return S > 0 and S % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                        for t in tensors)
+
+
+def scan_config(S: int, N: int, backward: bool) -> Dict[str, int]:
+    """The ring depth and dynamic shared memory per block that K-1 (or K-2,
+    ``backward``) takes for N rays of S samples on the current GPU."""
+    so = lib("scan")
+    stages, smem = ctypes.c_int(), ctypes.c_int()
+    _check("scan_config", so, so.esr_scan_config(
+        int(S), int(N), int(backward), ctypes.byref(stages),
+        ctypes.byref(smem)))
+    return {"stages": stages.value, "smem_bytes": smem.value}
+
+
+def _require_ns(alpha: torch.Tensor, what: str) -> None:
+    _require(alpha, torch.float32, what)
+    if alpha.dim() != 2:
+        raise ValueError(f"{what} must be [N, S], got {tuple(alpha.shape)}")
+
+
+def scan_fwd(alpha: torch.Tensor, early_exit: float):
+    """K-1 on ``alpha [N, S]``: returns ``(w, t_in [N, S], last [N])``."""
+    _require_ns(alpha, "scan_fwd alpha")
+    N, S = alpha.shape
+    w = torch.empty_like(alpha)
+    t_in = torch.empty_like(alpha)
+    last = torch.empty((N,), dtype=torch.float32, device=alpha.device)
     so = lib("scan")
     _check("scan_fwd", so, so.esr_scan_fwd(
-        _ptr(alpha_sn), _ptr(w), _ptr(t_in), _ptr(last), S, N,
-        float(early_exit), _stream(alpha_sn)))
+        _ptr(alpha), _ptr(w), _ptr(t_in), _ptr(last), S, N,
+        float(early_exit), int(scan_tma_ok(S, alpha, w, t_in)),
+        _stream(alpha)))
     launches["scan_fwd"] += 1
     return w, t_in, last
 
 
-def scan_bwd(alpha_sn, t_in, ctw_sn, ct_last, early_exit: float):
-    """K-2: ``d_alpha [S, N]`` from the forward's ``t_in`` and the
-    cotangents of the weights ``[S, N]`` and of ``last`` ``[N]``."""
-    for t, what in ((alpha_sn, "alpha"), (t_in, "t_in"), (ctw_sn, "ct_w"),
-                    (ct_last, "ct_last")):
+def scan_bwd(alpha, t_in, ct_w, ct_last, early_exit: float):
+    """K-2: ``d_alpha [N, S]`` from the forward's ``t_in`` and the
+    cotangents of the weights ``[N, S]`` and of ``last`` ``[N]``."""
+    _require_ns(alpha, "scan_bwd alpha")
+    for t, what in ((t_in, "t_in"), (ct_w, "ct_w"), (ct_last, "ct_last")):
         _require(t, torch.float32, f"scan_bwd {what}")
-    S, N = alpha_sn.shape
-    if t_in.shape != (S, N) or ctw_sn.shape != (S, N) or ct_last.shape != (N,):
+    N, S = alpha.shape
+    if t_in.shape != (N, S) or ct_w.shape != (N, S) or ct_last.shape != (N,):
         raise ValueError("scan_bwd: shape mismatch")
-    da = torch.empty_like(alpha_sn)
+    da = torch.empty_like(alpha)
     so = lib("scan")
     _check("scan_bwd", so, so.esr_scan_bwd(
-        _ptr(alpha_sn), _ptr(t_in), _ptr(ctw_sn), _ptr(ct_last), _ptr(da),
-        S, N, float(early_exit), _stream(alpha_sn)))
+        _ptr(alpha), _ptr(t_in), _ptr(ct_w), _ptr(ct_last), _ptr(da),
+        S, N, float(early_exit), int(scan_tma_ok(S, alpha, t_in, ct_w, da)),
+        _stream(alpha)))
     launches["scan_bwd"] += 1
     return da
 

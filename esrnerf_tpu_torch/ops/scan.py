@@ -4,7 +4,8 @@ backward, as one ``torch.autograd.Function``.
 Port of ``esrnerf_tpu/ops/scan.py``. On a CUDA tensor the forward runs
 kernel K-1 and the backward kernel K-2 (``csrc/scan.cu``); on a CPU tensor
 both run the plain versions below, which mirror the reference's vectorized
-``_fwd_jnp`` / ``_bwd_jnp``.
+``_fwd_jnp`` / ``_bwd_jnp``. Everything takes the march's ``[N, S]``
+layout (rays x samples); no launch is wrapped in a transposing copy.
 
 Semantics: a sample is live iff the transmittance entering it is
 ``>= early_exit``; the sample that drives T below the threshold still gets
@@ -26,13 +27,18 @@ from esrnerf_tpu_torch.ops import kernels
 from esrnerf_tpu_torch.ops.render import EARLY_EXIT_T
 
 
-def _fwd_plain(alpha_sn: torch.Tensor, ee: float):
-    """Plain ``[S, N]`` version of K-1: ``(w, t_in, last [N])``.
+def _fwd_plain(alpha: torch.Tensor, ee: float):
+    """Plain version of K-1 on ``alpha [N, S]``: ``(w, t_in [N, S],
+    last [N])``.
 
-    T follows the plain exclusive cumprod until it first enters a sample
-    below ``ee``; from that sample on ``a_eff`` is zero, so T (and every
-    later ``T_in``) freezes at that entry value.
+    Works in ``[S, N]`` inside, so that the cumprod runs over the outer
+    dimension: on the card it takes each ray's products in sample order in
+    float, as the kernel does (PyTorch's CPU cumprod carries them in
+    double). T follows the plain exclusive cumprod until it first enters a
+    sample below ``ee``; from that sample on ``a_eff`` is zero, so T (and
+    every later ``T_in``) freezes at that entry value.
     """
+    alpha_sn = alpha.t().contiguous()
     S, N = alpha_sn.shape
     c = torch.cumprod(1.0 - alpha_sn, dim=0)
     tin_raw = torch.cat([torch.ones_like(alpha_sn[:1]), c[:-1]], 0)
@@ -46,11 +52,14 @@ def _fwd_plain(alpha_sn: torch.Tensor, ee: float):
     a_eff = torch.where(dead, torch.zeros_like(alpha_sn), alpha_sn)
     w = a_eff * tin
     last = tin[-1] * (1.0 - a_eff[-1])
-    return w, tin, last
+    return w.t().contiguous(), tin.t().contiguous(), last
 
 
-def _bwd_plain(alpha_sn, tin_sn, ctw_sn, ct_last, ee: float):
-    """Plain version of K-2 (division-form gradient)."""
+def _bwd_plain(alpha, tin, ctw, ct_last, ee: float):
+    """Plain version of K-2 (division-form gradient) on ``[N, S]``
+    inputs and ``ct_last [N]``: ``d_alpha [N, S]``. Works in ``[S, N]``
+    inside, as :func:`_fwd_plain` does."""
+    alpha_sn, tin_sn, ctw_sn = (x.t().contiguous() for x in (alpha, tin, ctw))
     live = tin_sn >= ee
     a_eff = torch.where(live, alpha_sn, torch.zeros_like(alpha_sn))
     w = a_eff * tin_sn
@@ -60,42 +69,41 @@ def _bwd_plain(alpha_sn, tin_sn, ctw_sn, ct_last, ee: float):
     tail = torch.flip(torch.cumsum(rev, 0) - rev, [0])  # sum_{j>s} w_j ct_j
     A = tail + (last * ct_last)[None, :]
     grad = tin_sn * ctw_sn - A / torch.clamp(1.0 - a_eff, min=1e-10)
-    return torch.where(live, grad, torch.zeros_like(grad))
+    return torch.where(live, grad, torch.zeros_like(grad)).t().contiguous()
 
 
-def scan_forward(alpha_sn: torch.Tensor, early_exit: float):
-    """K-1 on a CUDA tensor, else the plain version."""
-    if alpha_sn.is_cuda:
-        return kernels.scan_fwd(alpha_sn, early_exit)
-    return _fwd_plain(alpha_sn, early_exit)
+def scan_forward(alpha: torch.Tensor, early_exit: float):
+    """K-1 on a CUDA tensor, else the plain version; ``alpha [N, S]``."""
+    if alpha.is_cuda:
+        return kernels.scan_fwd(alpha, early_exit)
+    return _fwd_plain(alpha, early_exit)
 
 
-def scan_backward(alpha_sn, tin_sn, ctw_sn, ct_last, early_exit: float):
-    """K-2 on CUDA tensors, else the plain version."""
-    if alpha_sn.is_cuda:
-        return kernels.scan_bwd(alpha_sn, tin_sn, ctw_sn, ct_last, early_exit)
-    return _bwd_plain(alpha_sn, tin_sn, ctw_sn, ct_last, early_exit)
+def scan_backward(alpha, tin, ctw, ct_last, early_exit: float):
+    """K-2 on CUDA tensors, else the plain version; ``[N, S]`` inputs."""
+    if alpha.is_cuda:
+        return kernels.scan_bwd(alpha, tin, ctw, ct_last, early_exit)
+    return _bwd_plain(alpha, tin, ctw, ct_last, early_exit)
 
 
 class _Alpha2WeightsScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, alpha, early_exit):
-        a_sn = alpha.detach().t().contiguous()  # [S, N]: rays on lanes
-        w, tin, last = scan_forward(a_sn, early_exit)
-        ctx.save_for_backward(a_sn, tin)
+        a = alpha.detach()  # [N, S], as the march holds it
+        w, tin, last = scan_forward(a, early_exit)
+        ctx.save_for_backward(a, tin)
         ctx.early_exit = early_exit
-        return w.t(), last
+        return w, last
 
     @staticmethod
     def backward(ctx, ct_w, ct_last):
-        a_sn, tin = ctx.saved_tensors
-        S, N = a_sn.shape
-        ctw = (torch.zeros_like(a_sn) if ct_w is None
-               else ct_w.t().contiguous())
-        ctl = (torch.zeros((N,), dtype=a_sn.dtype, device=a_sn.device)
-               if ct_last is None else ct_last.contiguous())
-        da = scan_backward(a_sn, tin, ctw, ctl, ctx.early_exit)
-        return da.t(), None
+        a, tin = ctx.saved_tensors
+        # the march stacks w with other columns, whose backward hands a
+        # strided ct_w
+        ctw = torch.zeros_like(a) if ct_w is None else ct_w.contiguous()
+        ctl = (a.new_zeros((a.shape[0],)) if ct_last is None
+               else ct_last.contiguous())
+        return scan_backward(a, tin, ctw, ctl, ctx.early_exit), None
 
 
 def alpha2weights_scan(

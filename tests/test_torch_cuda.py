@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_scan_oracle import (SCAN_CASES, assert_grad_close,
+                                    scan_bwd_oracle, scan_case,
+                                    scan_fwd_oracle)
 from test_torch_splat_gather_cases import (GATHER_CASES, SPLAT_CASES,
                                            gather_case, splat_case)
 
@@ -32,10 +35,10 @@ def test_scan_kernels(dev):
     from esrnerf_tpu_torch.ops import scan as scanops
 
     rng = np.random.default_rng(0)
-    a = torch.as_tensor(rng.uniform(0, 0.9, (53, 700)).astype(np.float32),
+    a = torch.as_tensor(rng.uniform(0, 0.9, (700, 53)).astype(np.float32),
                         device=dev)
-    a[10, 3] = 1.0
-    ctw = torch.randn(53, 700, device=dev)
+    a[3, 10] = 1.0
+    ctw = torch.randn(700, 53, device=dev)
     ctl = torch.randn(700, device=dev)
     n0 = kernels.launches["scan_fwd"]
     for got, want in zip(scanops.scan_forward(a, 1e-3),
@@ -45,6 +48,98 @@ def test_scan_kernels(dev):
     _, tin, _ = scanops._fwd_plain(a, 1e-3)
     _close(scanops.scan_backward(a, tin, ctw, ctl, 1e-3),
            scanops._bwd_plain(a, tin, ctw, ctl, 1e-3), 1e-4, 1e-5)
+
+
+def _scan_case_on(dev, name):
+    alpha, ctw, ctl, ee = scan_case(name)
+    return (alpha, ctw, ctl, ee,
+            *(torch.as_tensor(x, device=dev) for x in (alpha, ctw, ctl)))
+
+
+def _off16(t):
+    """A contiguous copy of ``t`` whose base lies 4 bytes past a 16-byte
+    boundary: the scan kernels then take the cp.async route."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("route", ["auto", "cp_async"])
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_scan_kernel_cases(dev, name, route):
+    """K-1 and K-2 bitwise against the sequential float32 oracle, K-1
+    bitwise against its plain version, K-2 within rtol 1e-4 / atol 1e-5
+    (scaled to the case's gradients) of its plain version (a cumsum
+    difference). ``auto`` takes the TMA route wherever S is a multiple of
+    4; ``cp_async`` feeds alpha from a base off 16 bytes, which takes the
+    other."""
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.ops import scan as scanops
+
+    alpha, ctw, ctl, ee, a, cw, cl = _scan_case_on(dev, name)
+    S = alpha.shape[1]
+    if route == "cp_async":
+        a = _off16(a)
+    assert kernels.scan_tma_ok(S, a) == (route == "auto" and S % 4 == 0)
+    n0 = dict(kernels.launches)
+    w, tin, last = kernels.scan_fwd(a, ee)
+    w_o, tin_o, last_o = scan_fwd_oracle(alpha, ee)
+    for got, want in ((w, w_o), (tin, tin_o), (last, last_o)):
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    for got, want in zip((w, tin, last), scanops._fwd_plain(a, ee)):
+        _close(got, want, 0, 0)
+    d = kernels.scan_bwd(a, tin, cw, cl, ee)
+    np.testing.assert_array_equal(
+        d.cpu().numpy(), scan_bwd_oracle(alpha, tin_o, ctw, ctl, ee))
+    assert_grad_close(d.cpu(), scanops._bwd_plain(a, tin, cw, cl, ee).cpu(),
+                      1e-4, 1e-5)
+    assert kernels.launches["scan_fwd"] == n0["scan_fwd"] + 1
+    assert kernels.launches["scan_bwd"] == n0["scan_bwd"] + 1
+
+
+def test_scan_kernel_refusals_and_ring(dev):
+    """A strided, non-f32 or non-2-D tensor is refused (no quiet
+    conversion); at the fine step's shape two blocks' rings fit an SM."""
+    from esrnerf_tpu_torch.ops import kernels
+
+    alpha, ctw, ctl, ee, a, cw, cl = _scan_case_on(dev, "band24")
+    tin = kernels.scan_fwd(a, ee)[1]
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.scan_fwd(a.t(), ee)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.scan_fwd(a.double(), ee)
+    with pytest.raises(ValueError, match=r"\[N, S\]"):
+        kernels.scan_fwd(a.reshape(-1), ee)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.scan_bwd(a, tin, cw.t().contiguous().t(), cl, ee)
+    props = torch.cuda.get_device_properties(dev)
+    for backward in (False, True):
+        ring = kernels.scan_config(896, 8192, backward)
+        assert 1 <= ring["stages"] <= 4
+        assert 2 * ring["smem_bytes"] <= getattr(
+            props, "shared_memory_per_multiprocessor", 233472)
+
+
+def test_scan_autograd_strided_cotangent(dev):
+    """The march stacks the weights with other columns, so autograd hands
+    the scan a strided ``ct_w``: the gradient on the card equals the CPU's
+    plain versions (rtol 1e-4 / atol 1e-5)."""
+    from esrnerf_tpu_torch.ops import scan as scanops
+
+    alpha, _, _, ee = scan_case("band24_ring")
+    rng = np.random.default_rng(5)
+    ct = rng.normal(size=alpha.shape + (2,)).astype(np.float32)
+    ctl = rng.normal(size=alpha.shape[:1]).astype(np.float32)
+    grads = []
+    for d in (torch.device("cpu"), dev):
+        a = torch.as_tensor(alpha, device=d).requires_grad_(True)
+        w, last = scanops.alpha2weights_scan(a, ee)
+        stacked = torch.stack([a, w], -1)
+        loss = ((stacked * torch.as_tensor(ct, device=d)).sum()
+                + (last * torch.as_tensor(ctl, device=d)).sum())
+        grads.append(torch.autograd.grad(loss, a)[0])
+    _close(grads[1], grads[0], 1e-4, 1e-5)
 
 
 @pytest.mark.parametrize("C,S,n_valid", [(1, 8, None), (6, 8, 5000),
