@@ -35,7 +35,11 @@ Phases, in order; any failure exits non-zero:
 6. gather benchmarks: the two microbenchmark entry points
    (esrnerf_tpu_torch.scripts.bench_gather_grid, K-5, tight and random
    spans; bench_gather_parts, K-6, modes dma, build and full) run in
-   process at their full shapes, each launching its kernel;
+   process at their full shapes, each launching its kernel; then each
+   kernel against its plain version (bitwise; K-6 dma all zeros), timed
+   warm and with the L2 cold, beside an empty launch's time (the launch
+   floor); K-6 dma's cold time must not fall below 95% of its HBM bound
+   (a kernel that skipped its reads would);
 7. trainer: the fine stage end to end through esrnerf_tpu_torch.run.main at
    full width: a synthetic 256x256 scene (12 train, 3 test views), a
    coarse-stage checkpoint (64^3 occupancy ball, 96^3 sphere SDF), 24
@@ -895,8 +899,11 @@ def _parts_words(mode, npiece, device):
 def check_gather_bench(device, nch=64, npiece=64):
     """K-5 and K-6 through their entry points' ``main`` (the launch counts
     are read around each call), then each kernel against its plain version
-    on the same inputs (those launches are not counted). Returns the kernel
-    table rows."""
+    on the same inputs, bitwise (those launches are not counted), timed
+    warm and cold beside the launch floor: an empty launch
+    (``torch.cuda._sleep(0)``) timed by the same ``time_ms``. Raises if K-6
+    ``dma`` runs cold in less than 95% of its HBM bound. Returns the
+    kernel table rows."""
     import torch
 
     from esrnerf_tpu_torch.ops import gather_bench as gb
@@ -907,16 +914,23 @@ def check_gather_bench(device, nch=64, npiece=64):
     kern = device.type == "cuda"
     dev_arg = ["--device", device.type]
     rows = []
+    empty = (lambda: torch.cuda._sleep(0)) if kern else (lambda: None)
+    floor_ms = time_ms(empty, device)
+    emit({"phase": "gather_bench", "floor_ms": floor_ms,
+          "cold_floor_ms": time_cold_ms(empty, device)})
 
-    def row(kernel, variant, launches, err, ms, plain_ms, nbytes):
+    def row(kernel, variant, launches, err, fn, plain, nbytes):
         b, by = bound_ms(nbytes, 0)
         r = {"name": f"{kernel}_{variant}", "route": "cuda",
              "source": KERNEL_SOURCES[kernel][0],
              "replaces": KERNEL_SOURCES[kernel][1], "launches": launches,
-             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b, "bound_by": by, "library_ms": None}
+             "max_abs_err": err, "ms": time_ms(fn, device),
+             "plain_ms": time_ms(plain, device), "bound_ms": b,
+             "bound_by": by, "library_ms": None,
+             "cold_ms": time_cold_ms(fn, device), "floor_ms": floor_ms}
         rows.append(r)
         emit({"phase": "gather_bench", **r})
+        return r
 
     for span in ("tight", "random"):
         kernels.reset_launches()
@@ -932,8 +946,7 @@ def check_gather_bench(device, nch=64, npiece=64):
         pos, ok = gb.grid_taps(*args)
         uniq = int(torch.unique(pos[ok.expand_as(pos)]).numel())
         nbytes = 4 * (nch * 24 * 2048 + nch * 2048 + nch * 33 + uniq)
-        row("gather_grid", span, launches, err, time_ms(fn, device),
-            time_ms(plain, device), nbytes)
+        row("gather_grid", span, launches, err, fn, plain, nbytes)
 
     tbl = torch.as_tensor(k6.make_table(npiece), device=device)
     flat = tbl.reshape(-1)
@@ -944,15 +957,20 @@ def check_gather_bench(device, nch=64, npiece=64):
         fn = ((lambda: kernels.gather_parts(tbl, mode, npiece)) if kern
               else (lambda: gb._gather_parts_plain(flat, mode, npiece)))
         plain = lambda: gb._gather_parts_plain(flat, mode, npiece)
-        err = assert_close(f"gather_parts {mode}", fn(), plain(), 0.0, 1e-5)
+        err = assert_close(f"gather_parts {mode}", fn(), plain(), 0.0, 0.0)
         out_bytes = 4 * 24 * 2048
         if mode == "dma":
             read = npiece * (gb.NCAP_T + gb.EXT_T) * gb.GROUP
         else:
             read = int(torch.unique(_parts_words(mode, npiece,
                                                  device)).numel())
-        row("gather_parts", mode, launches, err, time_ms(fn, device),
-            time_ms(plain, device), out_bytes + 4 * read)
+        r = row("gather_parts", mode, launches, err, fn, plain,
+                out_bytes + 4 * read)
+        if kern and mode == "dma" and r["cold_ms"] < 0.95 * r["bound_ms"]:
+            raise AssertionError(
+                f"gather_parts dma: cold {r['cold_ms']:.5f} ms is below 95% "
+                f"of its {r['bound_ms']:.5f} ms HBM bound: the table was "
+                "not read")
     return rows
 
 

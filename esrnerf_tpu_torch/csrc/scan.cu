@@ -87,36 +87,6 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * kTileS + ((c ^ (r & 7)) << 2);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 __device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
                                          uint32_t bar, int s0, int n0) {
   asm volatile(
@@ -159,14 +129,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
-// the mbarrier's next arrival (one per lane) fires when this lane's
-// earlier cp.async copies have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
-                   bar)
-               : "memory");
-}
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -181,15 +143,6 @@ __device__ __forceinline__ float* align_smem(unsigned char* raw) {
   const uint32_t a = smem_u32(raw);
   return reinterpret_cast<float*>(raw + ((kAlign - (a & (kAlign - 1))) &
                                          (kAlign - 1)));
-}
-
-__device__ __forceinline__ void init_bars(uint64_t* bars, int n,
-                                          uint32_t count, int lane) {
-  if (lane == 0) {
-    for (int i = 0; i < n; ++i) mbar_init(smem_u32(bars + i), count);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncwarp();
 }
 
 // One [32 x 32] tile of src at (n0, s0) into a swizzled shared tile by the

@@ -150,7 +150,9 @@ def gather_parts(tbl, mode: str, npiece: int = 64) -> torch.Tensor:
         raise ValueError(f"gather_parts: table needs >= {need} words in "
                          f"128-word tiles, got {tuple(tbl.shape)}")
     if tbl.is_cuda:
-        return kernels.gather_parts(tbl.to(torch.float32).contiguous(), mode,
-                                    npiece)
+        t = tbl.to(torch.float32).contiguous()
+        if t.data_ptr() % 16:  # a view off a 16-byte boundary: the kernels
+            t = t.clone()      # read the table by 16-byte bulk copies
+        return kernels.gather_parts(t, mode, npiece)
     return _gather_parts_plain(tbl.reshape(-1).to(torch.float32), mode,
                                npiece)

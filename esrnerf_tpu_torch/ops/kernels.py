@@ -363,8 +363,12 @@ _PARTS_MODES = {"dma": 0, "build": 1, "full": 2}
 
 def gather_parts(tbl, mode: str, npiece: int):
     """K-6: ``out [1, 24, 2048]`` after sweeping ``npiece`` pieces of the
-    flat table in ``mode`` (``dma``, ``build`` or ``full``)."""
+    flat table in ``mode`` (``dma``, ``build`` or ``full``). The table's
+    base must be 16-byte aligned (the kernels read it by bulk copies)."""
     _require(tbl, torch.float32, "gather_parts tbl")
+    if tbl.data_ptr() % 16:
+        raise ValueError("gather_parts: the table's base must be 16-byte "
+                         "aligned")
     out = torch.empty((1, 24, 2048), dtype=torch.float32, device=tbl.device)
     so = lib("gather_bench")
     _check(f"gather_parts_{mode}", so, so.esr_gather_parts(

@@ -11,9 +11,10 @@ are the script's, from ``numpy.random.default_rng(0)``: chunk windows
 random (a start in the window's first half, a length up to a third of it);
 lane indices up to 100 words past the span's start. The script's table is
 all ones; here it is drawn from the same generator after those inputs, so
-a wrong index shows. Prints, per span, the mean time of ``--reps`` calls
-(CUDA events on the card) in ms and in us per chunk. ``--device cpu`` runs
-the plain version.
+a wrong index shows. Prints, per span, the mean time of ``--reps``
+back-to-back calls in ms and in us per chunk: on the card the device's
+time (CUDA events, behind a spin kernel that holds the card while the host
+enqueues the calls). ``--device cpu`` runs the plain version.
 """
 
 from __future__ import annotations
@@ -63,8 +64,8 @@ def run(tight_span: bool, device, nch: int = NCH, reps: int = 10) -> float:
         raise AssertionError("gather_grid: non-finite output")
     dt = time_calls(lambda: gb.gather_grid(a["tbl"], a["idx"], a["w0"],
                                            a["gf"], a["gl"]), device, reps)
-    print(f"grid=({nch}) tight={tight_span}: {dt * 1e3:8.3f} ms total, "
-          f"{dt * 1e6 / nch:8.2f} us/chunk", flush=True)
+    print(f"grid=({nch}) tight={tight_span}: {dt * 1e3:9.4f} ms total, "
+          f"{dt * 1e6 / max(nch, 1):8.3f} us/chunk", flush=True)
     return dt
 
 

@@ -10,8 +10,9 @@ falls in its window (``full``; the script's ``when`` mode computes the
 same). See ``esrnerf_tpu_torch.ops.gather_bench.gather_parts``. The
 script's table is all ones; here it is drawn from
 ``numpy.random.default_rng(0)``. Prints, per mode, the mean time of
-``--reps`` calls (CUDA events on the card) in ms and in us per piece.
-``--device cpu`` runs the plain version.
+``--reps`` back-to-back calls in ms and in us per piece: on the card the
+device's time (CUDA events, behind a spin kernel that holds the card while
+the host enqueues the calls). ``--device cpu`` runs the plain version.
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ def run(mode: str, device, npiece: int = NPIECE, reps: int = 10,
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"gather_parts {mode}: non-finite output")
     dt = time_calls(lambda: gb.gather_parts(tbl, mode, npiece), device, reps)
-    print(f"{mode:6s}: {dt * 1e3:8.3f} ms total, "
-          f"{dt * 1e6 / npiece:8.2f} us/piece", flush=True)
+    print(f"{mode:6s}: {dt * 1e3:9.4f} ms total, "
+          f"{dt * 1e6 / max(npiece, 1):8.3f} us/piece", flush=True)
     return dt
 
 

@@ -27,12 +27,23 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def time_calls(fn, device, reps: int = 10) -> float:
-    """Mean seconds per call of ``fn()`` over ``reps`` calls after one
-    warm-up call: CUDA events around the calls on the card, the host clock
-    elsewhere."""
+    """Mean seconds per call of ``fn()`` over ``reps`` back-to-back calls
+    after one warm-up call. On the card: CUDA events around the calls,
+    after a spin kernel (``torch.cuda._sleep``) that holds the card while
+    the host enqueues them, sized from one synchronised call's host time,
+    so the events time the device's work and not the host's launch cost.
+    Elsewhere the host clock."""
     dev = torch.device(device)
     fn()
     if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        host_s = time.perf_counter() - t0
+        # ~2e9 cycles a second at the H100's boost clock; a lower clock
+        # only lengthens the spin
+        torch.cuda._sleep(int(min(2e9, (2 * reps * host_s + 1e-3) * 2e9)))
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()

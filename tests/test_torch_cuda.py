@@ -231,12 +231,58 @@ def test_gather_grid_kernel(dev, tight):
     _close(got, want, 0, 0)
 
 
-@pytest.mark.parametrize("mode", ["dma", "build", "full"])
-def test_gather_parts_kernel(dev, mode):
+def _exact_parts_table(dev, npiece):
+    """A random table of exactly npiece * GCAP + 256 words (whole tiles),
+    followed in its allocation by NaN words: a kernel reading past the end
+    of what the contract allows would return NaN."""
     from esrnerf_tpu_torch.ops import gather_bench as gb
-    from esrnerf_tpu_torch.scripts.bench_gather_parts import make_table
 
-    tbl = torch.as_tensor(make_table(3), device=dev)
-    got = gb.gather_parts(tbl, mode, 3)
-    want = gb._gather_parts_plain(tbl.reshape(-1), mode, 3)
-    _close(got, want, 0, 1e-6)
+    need = npiece * gb.GCAP + gb.EXT_T * gb.GROUP
+    gen = torch.Generator(device=dev).manual_seed(npiece)
+    buf = torch.full((need + 4096,), float("nan"), device=dev)
+    buf[:need] = torch.randn(need, generator=gen, device=dev)
+    return buf[:need].view(-1, 1, gb.GROUP)
+
+
+@pytest.mark.parametrize("npiece", [0, 1, 3, 64, 769])
+@pytest.mark.parametrize("mode", ["dma", "build", "full"])
+def test_gather_parts_kernel(dev, mode, npiece):
+    """K-6 on a table of exactly the words it may read: build and full
+    bitwise equal to the plain version, dma all zeros, one launch a call.
+    At 769 pieces t0 = (13p + 7g + k) mod 768 wraps, so a lane meets the
+    same window twice."""
+    from esrnerf_tpu_torch.ops import gather_bench as gb
+    from esrnerf_tpu_torch.ops import kernels
+
+    tbl = _exact_parts_table(dev, npiece)
+    key = f"gather_parts_{mode}"
+    for call in range(2):
+        n0 = kernels.launches[key]
+        got = gb.gather_parts(tbl, mode, npiece)
+        assert kernels.launches[key] == n0 + 1
+        torch.cuda.synchronize(dev)
+        assert got.shape == (1, gb.K * gb.W, gb.LANES)
+        if mode == "dma":
+            assert not bool(got.any())
+        else:
+            want = gb._gather_parts_plain(tbl.reshape(-1), mode, npiece)
+            assert bool(torch.isfinite(got).all())
+            assert torch.equal(got, want)
+            if mode == "full" and npiece:
+                assert bool((got != 0).any())
+
+
+def test_gather_parts_unaligned_table(dev):
+    """A table 4 bytes off a 16-byte boundary: the launch helper refuses it,
+    the op copies it to an aligned base and gives the aligned result."""
+    from esrnerf_tpu_torch.ops import gather_bench as gb
+    from esrnerf_tpu_torch.ops import kernels
+
+    tbl = _exact_parts_table(dev, 3)
+    off = torch.empty(tbl.numel() + 1, device=dev)[1:].view_as(tbl)
+    off.copy_(tbl)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.gather_parts(off, "full", 3)
+    for mode in gb.MODES:
+        assert torch.equal(gb.gather_parts(off, mode, 3),
+                           gb.gather_parts(tbl, mode, 3))

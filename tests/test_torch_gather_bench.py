@@ -76,8 +76,8 @@ def test_gather_grid_matches_pallas_body():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def _k6_pallas(mode, tbl, monkeypatch):
-    monkeypatch.setattr(k6, "NPIECE", 2)
+def _k6_pallas(mode, tbl, monkeypatch, npiece=2):
+    monkeypatch.setattr(k6, "NPIECE", npiece)
     fn = pl.pallas_call(
         functools.partial(k6.body, mode, jax.lax.Precision.HIGHEST),
         grid_spec=pltpu.PrefetchScalarGridSpec(
@@ -108,6 +108,42 @@ def test_gather_parts_matches_pallas_body(mode, monkeypatch):
     if mode == "full":
         assert (want != 0).any()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["full", "build", "dma"])
+def test_gather_parts_zero_pieces_matches_pallas_body(mode, monkeypatch):
+    """No piece swept: the body's loop never runs and the output is zeros.
+    The body's copy is traced at one piece's size, so its table holds one
+    piece; the port takes just the EXT_T tiles the contract needs."""
+    rng = np.random.default_rng(2)
+    tbl = rng.normal(size=(gb.NCAP_T + gb.EXT_T, 1, gb.GROUP)).astype(
+        np.float32)
+    want = _k6_pallas(mode, tbl, monkeypatch, npiece=0)
+    got = gb.gather_parts(torch.as_tensor(tbl[:gb.EXT_T]), mode,
+                          npiece=0).numpy()
+    assert got.shape == want.shape == (1, gb.K * gb.W, gb.LANES)
+    assert not want.any()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["full", "build", "dma"])
+@pytest.mark.parametrize("npiece", [0, 1, 3])
+def test_gather_parts_exact_table(mode, npiece):
+    """A table of exactly npiece * GCAP + 256 words is enough (the last
+    piece's two extra tiles end at its last word) and gives the result of
+    a padded table; one tile fewer is refused."""
+    rng = np.random.default_rng(3)
+    tiles = npiece * gb.NCAP_T + gb.EXT_T
+    padded = rng.normal(size=(tiles + 8, 1, gb.GROUP)).astype(np.float32)
+    exact = torch.as_tensor(padded[:tiles].copy())
+    assert exact.numel() == npiece * gb.GCAP + 256
+    got = gb.gather_parts(exact, mode, npiece)
+    assert torch.equal(got, gb.gather_parts(torch.as_tensor(padded), mode,
+                                            npiece))
+    if mode == "full" and npiece:
+        assert bool((got != 0).any())
+    with pytest.raises(ValueError, match="table needs"):
+        gb.gather_parts(exact[:-1], mode, npiece)
 
 
 def test_gather_parts_when_is_full_and_bad_inputs_raise():
