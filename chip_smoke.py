@@ -17,8 +17,9 @@ Phases, in order; any failure exits non-zero:
    against the script's own sequential float32 oracle, and the scan's
    cp.async route timed beside its TMA route; and the K-3 row again with
    every value zero (the atomics' share of its time);
-4. check: one small fine step on the card against the same step on the CPU
-   (plain versions): loss terms and every group's gradient;
+4. check: one small fine step, one small alphamask step and one small
+   coarse step on the card against the same steps on the CPU (plain
+   versions): loss terms, march counters and every group's gradient;
 5. train: the fine-stage train step at full width (cfg/app/fine.yaml: 256^3
    = 16,777,216 voxels, 8,192 rays, 192-wide heads; the benchmark's ball
    scene and budgets) through build_fine_train_step, 3 warm-up and 12
@@ -47,7 +48,23 @@ Phases, in order; any failure exits non-zero:
    eval with metrics and a 512^3 mesh, checkpoints; a resume to step 28;
    then the test_nv eval of the saved checkpoint. Asserts finite metrics,
    overflow 0, the eval files, the resume step, and the kernels launched
-   in train (K-1..K-4) and in eval (K-1, K-4).
+   in train (K-1..K-4) and in eval (K-1, K-4);
+8. chain: the stages upstream of fine and fine itself through
+   esrnerf_tpu_torch.run.main on another synthetic 256x256 scene, each
+   finding the previous stage's checkpoint by path: alphamask at full
+   width (cfg/app/alphamask.yaml: 1,024,000 voxels, 8,192 rays; its
+   view-count set-up), 2,000 steps, eval and checkpoint; coarse at full
+   width (cfg/app/coarse.yaml: 884,736 voxels, 8,192 rays, 128-wide heads)
+   with its DVGO-style ray filter, 60 steps, eval with its mesh,
+   checkpoint, a resume to step 64 and the test_nv eval of the saved
+   checkpoint; then 4 fine steps at 128^3. Per stage: set-up s, median
+   synchronised step ms and rays/s, device busy ms and kernel launches
+   per step (three more steps, profiled, and three counted), peak memory,
+   eval s per image, mesh s, checkpoint s and bytes. Asserts finite
+   metrics, coarse overflow 0, the eval files, the resume step, and the
+   kernels launched in alphamask train (K-3), coarse train (K-1..K-4) and
+   coarse test_nv (K-1, K-4); then one more alphamask and coarse step
+   each is captured and replayed as in phase 5.
 
 Prints one JSON line per phase, then the kernel table as one JSON object,
 the nvidia-smi line, and as the last line
@@ -481,8 +498,24 @@ def step_args(cfg, i, n_rays):
 class _GradsOut:
     """Optimizer stand-in that returns the step's gradients."""
 
-    def step(self, params, grads, state, lr_scales=None):
+    def step(self, params, grads, state, lr_scales=None, per_lr=None):
         return grads, state
+
+
+def assert_grads_close(g_c, g_d):
+    """Every group's gradient on the card within 1e-4 of the group's
+    largest |g| on the CPU; returns the worst ratio."""
+    worst = 0.0
+    for grp, gc in g_c.items():
+        lc = gc if isinstance(gc, dict) else {"": gc}
+        ld = g_d[grp] if isinstance(g_d[grp], dict) else {"": g_d[grp]}
+        scale = max(float(v.abs().max()) for v in lc.values())
+        for k in lc:
+            e = float((ld[k].cpu() - lc[k]).abs().max()) / max(scale, 1e-30)
+            if not e <= 1e-4:
+                raise AssertionError(f"grad {grp}/{k}: err/max|g| {e:.3e}")
+            worst = max(worst, e)
+    return worst
 
 
 def check_small_step(device, seed=0):
@@ -518,18 +551,84 @@ def check_small_step(device, seed=0):
     if aux_c[2:] != aux_d[2:]:
         raise AssertionError(f"march counters differ: {aux_c} vs {aux_d}")
     np.testing.assert_allclose(aux_d[:2], aux_c[:2], rtol=1e-4)
-    worst = 0.0
-    for grp, gc in g_c.items():
-        lc = gc if isinstance(gc, dict) else {"": gc}
-        ld = g_d[grp] if isinstance(g_d[grp], dict) else {"": g_d[grp]}
-        scale = max(float(v.abs().max()) for v in lc.values())
-        for k in lc:
-            e = float((ld[k].cpu() - lc[k]).abs().max()) / max(scale, 1e-30)
-            if not e <= 1e-4:
-                raise AssertionError(f"grad {grp}/{k}: err/max|g| {e:.3e}")
-            worst = max(worst, e)
     return {"mse": aux_d[0], "mse_cpu": aux_c[0], "k1_frac": aux_d[3],
-            "k2_frac": aux_d[4], "max_grad_err_rel": worst}
+            "k2_frac": aux_d[4], "max_grad_err_rel": assert_grads_close(g_c, g_d)}
+
+
+def _ball_mask_cache(dev, mask_res=16):
+    from esrnerf_tpu_torch.models.voxurf_base import make_mask_cache
+
+    g = np.linspace(-1, 1, mask_res)
+    xx, yy, zz = np.meshgrid(g, g, g, indexing="ij")
+    density = np.where(np.sqrt(xx**2 + yy**2 + zz**2) < 0.7, 20.0, -20.0)
+    return make_mask_cache(density.astype(np.float32)[..., None], [-1] * 3,
+                           [1] * 3, 1e-6, 1e-3, 3, device=dev)
+
+
+def check_small_upstream_steps(device, seed=0):
+    """One small alphamask step and one small coarse step on ``device``
+    against the same steps on the CPU (plain versions), from the same
+    parameters, batch and ray shifts: the MSE at rtol 1e-4, the coarse
+    march's counters equal, and each group's gradient within 1e-4 of its
+    max |g|."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.alphamask import build_alphamask_train_step
+    from esrnerf_tpu_torch.apps.coarse import build_coarse_train_step
+    from esrnerf_tpu_torch.config import load_cfg
+    from esrnerf_tpu_torch.models.dvgo import DVGO
+    from esrnerf_tpu_torch.models.voxurfc import VoxurfC
+
+    rng = np.random.default_rng(seed)
+    shift = rng.uniform(size=(64, 1)).astype(np.float32)
+    base = ["app.phase=train", "data.cls=x", "data.root=x", "data.scene=x",
+            "system.compute_dtype=float32"]
+    a_cfg = load_cfg("cfg/app/alphamask.yaml",
+                     base + ["app.model.num_voxels=32768"], root_dir=REPO)
+    c_cfg = load_cfg("cfg/app/coarse.yaml",
+                     base + ["app.model.num_voxels=32768",
+                             "app.model.rgbnet_width=32"], root_dir=REPO)
+    out, a_params, c_params = {}, None, None
+    for dev in (torch.device("cpu"), device):
+        on = lambda tree: {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                               if isinstance(v, dict) else v.to(dev))
+                           for k, v in tree.items()}
+        dvgo = DVGO(a_cfg, 0.5, 4.0, [-1] * 3, [1] * 3, device=dev)
+        vox = VoxurfC(c_cfg, 0.5, 4.0, [-1] * 3, [1] * 3,
+                      _ball_mask_cache(dev), s_val=20.0)
+        if a_params is None:
+            a_params = dvgo.init_params()
+            a_params["density"] = torch.as_tensor(rng.normal(
+                12.0, 3.0, a_params["density"].shape).astype(np.float32))
+            for g in ("off_color", "emo_color"):
+                a_params[g] = torch.as_tensor(rng.normal(
+                    size=a_params[g].shape).astype(np.float32))
+            c_params = vox.init_params(torch.Generator().manual_seed(seed))
+            for g in ("off_color", "emo_color"):
+                c_params[g] = torch.as_tensor(rng.normal(
+                    scale=0.3, size=c_params[g].shape).astype(np.float32))
+        batch = make_batch(seed, 64, dev)
+        per_lr = {"density": torch.full_like(a_params["density"], 0.5)}
+        ga, _, mse_a = build_alphamask_train_step(
+            dvgo, _GradsOut(), a_cfg, device=dev)(
+            on(a_params), None, batch, 1.0, on(per_lr),
+            rand_shift=torch.as_tensor(shift, device=dev))
+        gc, _, aux_c = build_coarse_train_step(
+            vox, _GradsOut(), c_cfg, device=dev)(
+            on(c_params), None, batch, 20.0, {k: 1.0 for k in c_params},
+            1.0, 0.1, 0.05)
+        out[dev.type] = (ga, float(mse_a), gc, [float(x) for x in aux_c])
+    (ga_c, ma_c, gc_c, ac_c), (ga_d, ma_d, gc_d, ac_d) = \
+        out["cpu"], out[device.type]
+    if ac_c[1:] != ac_d[1:]:
+        raise AssertionError(f"coarse march counters differ: {ac_c} vs {ac_d}")
+    np.testing.assert_allclose(ma_d, ma_c, rtol=1e-4)
+    np.testing.assert_allclose(ac_d[0], ac_c[0], rtol=1e-4)
+    return {"alphamask": {"mse": ma_d, "mse_cpu": ma_c,
+                          "max_grad_err_rel": assert_grads_close(ga_c, ga_d)},
+            "coarse": {"mse": ac_d[0], "mse_cpu": ac_c[0],
+                       "k1_frac": ac_d[2], "k2_frac": ac_d[3],
+                       "max_grad_err_rel": assert_grads_close(gc_c, gc_d)}}
 
 
 def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12):
@@ -602,8 +701,13 @@ def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12):
     return res, launches, captured
 
 
+# record_function ranges of the stages' train steps (``<stage>/<phase>``)
+STAGE_RANGES = ("fine/", "alphamask/", "coarse/")
+
+
 def profile_steps(device, run, n=3):
-    """Device time by kernel over ``n`` steps (torch.profiler)."""
+    """Device time by kernel over ``n`` steps (torch.profiler), and by the
+    step phases' ``record_function`` ranges."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -624,7 +728,7 @@ def profile_steps(device, run, n=3):
     # carry the same device time again
     ev = sorted((e for e in avgs
                  if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
-                 and not e.key.startswith("fine/")),
+                 and not e.key.startswith(STAGE_RANGES)),
                 key=lambda e: -dev_us(e))
     busy = sum(dev_us(e) for e in ev) / 1e3 / n
     top = [{"name": e.key[:90], "ms_per_step": dev_us(e) / 1e3 / n,
@@ -633,7 +737,8 @@ def profile_steps(device, run, n=3):
     # (CPU-side ranges; their GPU-side annotation spans are left out)
     phases = {}
     for e in prof.events():
-        if e.name.startswith("fine/") and str(e.device_type).endswith("CPU"):
+        if (e.name.startswith(STAGE_RANGES)
+                and str(e.device_type).endswith("CPU")):
             t = (getattr(e, "device_time_total", None)
                  or getattr(e, "cuda_time_total", 0) or 0)
             ph = phases.setdefault(e.name, {"device_ms": 0.0, "host_ms": 0.0})
@@ -1160,6 +1265,252 @@ def train_stage(device, work, wh=256, n_train=12, n_test=3,
     }
 
 
+# ------------------------------------------------------------- phase 8
+
+# kernels each path of the chain must launch
+CHAIN_KERNELS = {
+    "alphamask train": ("splat",),
+    "coarse train": ("scan_fwd", "scan_bwd", "splat", "gather_weighted"),
+    "coarse test_nv": ("scan_fwd", "gather_weighted"),
+}
+
+
+def stage_step(app, stage):
+    """``run(i)``: one more train step of ``stage`` on the trainer's live
+    state (parameters, optimizer, sampler and schedule after its run),
+    through the stage's own step builder."""
+    from esrnerf_tpu_torch.apps.alphamask import (build_alphamask_train_step,
+                                                  step_generator)
+    from esrnerf_tpu_torch.apps.coarse import build_coarse_train_step
+    from esrnerf_tpu_torch.apps.fine import build_fine_train_step
+
+    build = {"alphamask": build_alphamask_train_step,
+             "coarse": build_coarse_train_step,
+             "fine": build_fine_train_step}[stage]
+    step = build(app.renderer, app.opt, app.cfg, device=app.device)
+    gen = step_generator(app.device, 1, app.global_step)
+
+    def run(i):
+        gs = app.global_step
+        batch = app.place_batch(app.sampler.sample())
+        if stage == "alphamask":
+            args = (app.lr_scale, app.per_lr)
+            kw = {"generator": gen}
+        elif stage == "coarse":
+            args = (app.s_val_at(gs), dict(app.lr_scales),
+                    1.0 if app.tv_on(gs) else 0.0, float(app.tvs["sdf"]),
+                    float(app.tvs["smooth_grad"]))
+            kw = {}
+        else:
+            tv = app.tv_from < gs < app.tv_end and gs % app.tv_every == 0
+            args = (app.s_val_at(gs), dict(app.lr_scales), 1.0 if tv else 0.0,
+                    float(app.tvs["smooth_grad"]),
+                    float(app.weight_tv_density * app.tvs["sdf"]
+                          / app.train_bs), gs < app.tv_dense_before)
+            kw = {}
+        app.params, app.opt_state, aux = step(app.params, app.opt_state,
+                                              batch, *args, **kw)
+        return aux
+
+    return run
+
+
+def _stage_rows(app):
+    with open(os.path.join(app.cfg.log["dir"], "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    for r in rows:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{app.cfg.app['cls']}: non-finite metrics "
+                                 f"at step {r['step']}: {bad}")
+    return rows
+
+
+def _assert_eval_files(app, step, mesh):
+    d = app.cfg.log["dir"]
+    with open(os.path.join(d, "text", f"{step:010}", "mean.txt")) as f:
+        mean = f.read()
+    for key in ("srgb/PSNR", "srgb/SSIM", "srgb/LPIPS_ALEX"):
+        if key not in mean:
+            raise AssertionError(f"{d} mean.txt at step {step} lacks {key}")
+    if mesh:
+        with open(os.path.join(d, "mesh", f"{step:010}", "mesh.ply"),
+                  "rb") as f:
+            head = f.read(200).decode("latin1")
+        if int(head.split("element vertex ")[1].split()[0]) <= 0:
+            raise AssertionError(f"{d}: empty mesh at step {step}")
+
+
+def chain_stages(device, work, device_line=None, wh=256, n_train=12,
+                 n_test=3, am_iters=2000, co_iters=60, co_resume_iters=64,
+                 fine_iters=4, fine_voxels=128**3, extra=None, co_extra=(),
+                 prof_steps=3):
+    """The three stages through ``esrnerf_tpu_torch.run.main`` on one
+    synthetic scene, each finding the previous stage's checkpoint by path
+    (one ``log.root`` and ``log.name``): alphamask (train, eval,
+    checkpoint), coarse (train, eval with its mesh, checkpoint, a resume,
+    then the test_nv eval of the saved checkpoint) and a few fine steps at
+    ``fine_voxels``. Stages run at their configs' full widths unless
+    ``extra`` (stage -> overrides) cuts them. After each stage's training
+    run, ``prof_steps`` more steps are profiled and counted, and one more is
+    captured for the launch replay. Each stage's result is printed as a
+    ``chain`` line (with ``device_line``) as soon as it is measured.
+    Returns ``(rows, captured)``: the results and the captured alphamask
+    and coarse launches."""
+    import torch
+
+    from esrnerf_tpu_torch import run
+    from esrnerf_tpu_torch.data.synthetic import write_scene
+    from esrnerf_tpu_torch.ops import kernels
+
+    extra = extra or {}
+    t0 = time.perf_counter()
+    write_scene(os.path.join(work, "data"), wh=wh, n_train=n_train,
+                n_test=n_test)
+    scene_s = time.perf_counter() - t0
+
+    def args(stage, *ov):
+        return ["-cn", os.path.join(REPO, f"cfg/exp/esrnerf/giftbox_w/"
+                                          f"{stage}.yaml"),
+                f"data.root={work}/data", "data.scene=synth_ball",
+                f"log.root={work}/logs", "log.name=chain",
+                "log.offline=true", "system.debug=true",
+                # log, and so synchronise, after every step
+                "system.tqdm_iters=1", f"system.device={device.type}",
+                "app.trainer.N_vis=2", *extra.get(stage, ()), *ov]
+
+    def count(argv):
+        kernels.reset_launches()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        app = run.main(argv)
+        sync(device)
+        peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                if device.type == "cuda" else None)
+        return app, dict(kernels.launches), time.perf_counter() - t, peak
+
+    def measure(stage, app, launches, secs, peak, first_step=0):
+        """The stage's row: its run's timings and launches, the median
+        synchronised step, then a profile and a launch count of more
+        steps."""
+        rows = _stage_rows(app)
+        train = [r for r in rows if "train/metric/srgb/MSE" in r]
+        steps = [r["train/metric/etc/sec_per_step"] * 1e3 for r in train
+                 if r["step"] > first_step]
+        med = float(np.median(steps))
+        bs = int(app.train_bs)
+        runner = stage_step(app, stage)
+        prof = profile_steps(device, runner, n=prof_steps)
+        kernels.reset_launches()
+        for i in range(prof_steps):
+            runner(i)
+        sync(device)
+        per_step = {k: v / prof_steps for k, v in kernels.launches.items()
+                    if v}
+        return {
+            "stage": stage, "run_s": secs,
+            "setup_s": app.timings["setup_s"],
+            "steps": len(train), "median_step_ms": med,
+            "rays_per_s": bs / med * 1e3, "n_rays": bs,
+            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+            "device_launches_per_step": prof["device_launches_per_step"],
+            "phases_ms_per_step": prof["phases_ms_per_step"],
+            "port_kernels_ms_per_step": prof["port_kernels_ms_per_step"],
+            "kernel_launches_per_step": per_step,
+            "run_launches": {k: v for k, v in launches.items() if v},
+            "peak_memory_gb": peak,
+            "mse_first": train[0]["train/metric/srgb/MSE"],
+            "mse_last": train[-1]["train/metric/srgb/MSE"],
+            **{f"{k}_max": max(r.get(f"train/metric/etc/{k}", 0.0)
+                               for r in train)
+               for k in ("overflow", "k1_frac", "k2_frac")},
+            **{k: v for k, v in app.timings.items() if k != "setup_s"},
+        }, runner
+
+    out, captured = [], []
+
+    # 1. alphamask: frustum bbox, near-camera mask, view counts (K-3)
+    am, launches, secs, peak = count(args(
+        "alphamask", "app.phase=train", f"app.trainer.n_iters={am_iters}"))
+    row, runner = measure("alphamask", am, launches, secs, peak)
+    # the voxels coarse's bbox takes in (alpha > bbox_thres at interval 1)
+    alpha = am.renderer.activate_density(am.params["density"], 1.0)
+    row.update(world_size=list(am.renderer.world_size),
+               num_voxels=int(np.prod(am.renderer.world_size)),
+               n_samples=am.renderer.n_samples, scene_s=scene_s,
+               occupied_voxels=int((alpha > 1e-3).sum()))
+    _assert_eval_files(am, am_iters - 1, mesh=False)
+    captured += [dict(r, site="alphamask: " + r["site"])
+                 for r in capture_launches(lambda: runner(0))]
+    out.append(row)
+    emit({"phase": "chain", **row, "device": device_line})
+    del runner
+    missing = [k for k in CHAIN_KERNELS["alphamask train"]
+               if launches[k] == 0]
+
+    # 2. coarse: from alphamask's checkpoint by path
+    co_args = lambda n: args("coarse", "app.phase=train",
+                             f"app.trainer.n_iters={n}",
+                             f"app.trainer.save_every={co_iters}",
+                             f"app.trainer.vis_every={co_iters}", *co_extra)
+    co, launches, secs, peak = count(co_args(co_iters))
+    missing += [f"coarse train {k}" for k in CHAIN_KERNELS["coarse train"]
+                if launches[k] == 0]
+    row, runner = measure("coarse", co, launches, secs, peak)
+    row.update(world_size=list(co.renderer.geo.world_size),
+               num_voxels=int(np.prod(co.renderer.geo.world_size)),
+               n_samples=co.renderer.geo.n_samples,
+               bbox=[co.renderer.geo.xyz_min.tolist(),
+                     co.renderer.geo.xyz_max.tolist()])
+    if row["overflow_max"] != 0.0:
+        raise AssertionError(f"coarse march overflow {row['overflow_max']}")
+    _assert_eval_files(co, co_iters - 1, mesh=True)
+    captured += [dict(r, site="coarse: " + r["site"])
+                 for r in capture_launches(lambda: runner(0))]
+    del runner
+    co2, _, row["resume_s"], _ = count(co_args(co_resume_iters))
+    rows = _stage_rows(co2)
+    resumed = [r["step"] for r in rows if "train/metric/srgb/MSE" in r]
+    if resumed != list(range(co_resume_iters)):
+        raise AssertionError(f"coarse steps logged: {resumed}")
+    if co2.global_step != co_resume_iters - 1:
+        raise AssertionError(f"coarse resume ended at {co2.global_step}")
+    if max(r["train/metric/etc/overflow"] for r in rows
+           if "train/metric/etc/overflow" in r) != 0.0:
+        raise AssertionError("coarse march overflow after the resume")
+    ckpt = os.path.join(co2.cfg.log["dir"], "checkpoints", "last.ckpt")
+    ev, ev_launches, row["test_nv_s"], _ = count(args(
+        "coarse", "app.phase=test_nv", f"app.eval.ckpt={ckpt}"))
+    missing += [f"coarse test_nv {k}" for k in CHAIN_KERNELS["coarse test_nv"]
+                if ev_launches[k] == 0]
+    _assert_eval_files(ev, co_resume_iters - 1, mesh=True)
+    row.update(test_nv={k.split("/metric/")[1]: v
+                        for k, v in _stage_rows(ev)[-1].items()
+                        if "/metric/" in k},
+               test_nv_launches={k: v for k, v in ev_launches.items() if v},
+               test_nv_eval_s_per_image=ev.timings["eval_s_per_image"],
+               test_nv_mesh_s=ev.timings["mesh_s"])
+    out.append(row)
+    emit({"phase": "chain", **row, "device": device_line})
+    del co, co2, ev
+
+    # 3. a few fine steps from coarse's checkpoint by path
+    fi, launches, secs, peak = count(args(
+        "fine", "app.phase=train", f"app.trainer.n_iters={fine_iters}",
+        f"app.trainer.num_voxels={fine_voxels}", "app.trainer.pg_scale=[]"))
+    row, runner = measure("fine", fi, launches, secs, peak)
+    row.update(world_size=list(fi.renderer.geo.world_size),
+               num_voxels=fi.renderer.num_voxels)
+    _assert_eval_files(fi, fine_iters - 1, mesh=True)
+    out.append(row)
+    emit({"phase": "chain", **row, "device": device_line})
+    del fi, runner
+    if missing and device.type == "cuda":
+        raise AssertionError(f"kernels not launched by the chain: {missing}")
+    return out, captured
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1202,6 +1553,7 @@ def main() -> int:
     sync(device)
 
     emit({"phase": "check", **check_small_step(device)})
+    emit({"phase": "check_upstream", **check_small_upstream_steps(device)})
 
     res, launches, captured = train_full_width(device, NUM_VOXELS, N_RAYS)
     res["device"] = smi
@@ -1234,6 +1586,21 @@ def main() -> int:
         tr = train_stage(device, work)
     tr["device"] = smi
     emit({"phase": "trainer", **tr})
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="esr_chain_") as work:
+        _, captured = chain_stages(device, work, smi)
+    for stage, want in (("alphamask", {"splat"}),
+                        ("coarse", {"scan_fwd", "scan_bwd", "splat",
+                                    "gather_weighted"})):
+        seen = {r["kernel"] for r in captured
+                if r["site"].startswith(stage + ":")}
+        if not want <= seen:
+            raise AssertionError(f"captured {stage} step launched only "
+                                 f"{sorted(seen)}")
+    replay_launches(captured, device)
+    del captured
+    torch.cuda.empty_cache()
 
     emit({"kernels": rows})
     print(smi, flush=True)

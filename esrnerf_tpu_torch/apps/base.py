@@ -4,10 +4,13 @@ Port of ``esrnerf_tpu/apps/base.py`` without the mesh and sharding
 helpers. A stage owns ``load_dataset() / load_model() / process()`` plus
 its train loop, losses, eval and checkpoints. Shared here: the device
 (``system.device``: ``cpu``, or else CUDA), batch placement through pinned
-host memory, checkpoint path resolution (resume first, then the explicit
-checkpoint, then the previous stage's), the eval retry on march-budget
-overflow, the one-shot budget autotune, the eval artifact layout (``text/
-image/ video/ mesh/`` under the log dir) and media writing.
+host memory, the loss-and-gradient helper of the train steps
+(:func:`loss_and_grads`), checkpoint path resolution (resume first, then
+the explicit checkpoint, then the previous stage's by path substitution),
+timed checkpoint writes, the eval retry on march-budget overflow, the
+one-shot budget autotune, chunked eval rendering with the white-background
+composite and the sRGB metrics, the eval artifact layout (``text/ image/
+video/ mesh/`` under the log dir) and media writing.
 
 There is no compile cache: the march reads its budgets from the live
 renderer at every call, so a scaled or autotuned budget takes effect on
@@ -19,15 +22,19 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import time
 import warnings
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import png
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.logging import Logger, tqdm_safe
+from esrnerf_tpu_torch.utils.metrics import loss2psnr, rgb_lpips, rgb_ssim
 
 
 def import_class(class_path: str) -> Any:
@@ -43,6 +50,69 @@ def device_from_cfg(cfg) -> torch.device:
     return resolve_device("cpu" if dev.startswith("cpu") else "cuda")
 
 
+def tree_leaves(tree, prefix=()) -> List[Tuple[tuple, torch.Tensor]]:
+    """``(path, tensor)`` for every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        out = []
+        for k, v in tree.items():
+            out += tree_leaves(v, prefix + (k,))
+        return out
+    return [(prefix, tree)]
+
+
+def tree_unflatten(paths, values) -> Dict:
+    out: Dict = {}
+    for path, v in zip(paths, values):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def loss_and_grads(loss_fn: Callable, params, tag: str):
+    """``loss_fn(p) -> (loss, aux)`` on a differentiable copy of the
+    parameter tree; returns ``(aux, grads)`` with ``grads`` shaped like
+    ``params`` (zeros where a leaf got no gradient). The loss and the
+    backward run inside ``record_function`` ranges ``<tag>/loss`` and
+    ``<tag>/backward``."""
+    flat = tree_leaves(params)
+    paths = [p for p, _ in flat]
+    leaves = [t.detach().requires_grad_(True) for _, t in flat]
+    with record_function(f"{tag}/loss"):
+        loss, aux = loss_fn(tree_unflatten(paths, leaves))
+    with record_function(f"{tag}/backward"):
+        gl = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return aux, tree_unflatten(paths, [torch.zeros_like(t) if g is None
+                                       else g for t, g in zip(leaves, gl)])
+
+
+def composite_white_bg(imgs: Dict[str, np.ndarray],
+                       white_bg: float) -> Dict[str, np.ndarray]:
+    """Every render plus ``etc/white_bg * white_bg``, clipped to [0, 1];
+    ``etc/white_bg`` itself only clipped."""
+    wbg = imgs["etc/white_bg"] * white_bg
+    out = {}
+    for k, v in imgs.items():
+        if k == "etc/white_bg":
+            out[k] = np.clip(v, 0.0, 1.0)
+        else:
+            out[k] = np.clip(v + (wbg[..., None] if v.ndim == 3 else wbg),
+                             0.0, 1.0)
+    return out
+
+
+def srgb_metrics(metrics: Dict[str, List], pred: np.ndarray,
+                 rgbs: np.ndarray) -> None:
+    """Append the image's sRGB MSE, PSNR, SSIM and LPIPS (alex)."""
+    mse = float(((pred - rgbs) ** 2).mean())
+    metrics.setdefault("srgb/MSE", []).append(mse)
+    metrics.setdefault("srgb/PSNR", []).append(loss2psnr(mse))
+    metrics.setdefault("srgb/SSIM", []).append(rgb_ssim(pred, rgbs, 1))
+    metrics.setdefault("srgb/LPIPS_ALEX", []).append(
+        rgb_lpips(rgbs, pred, "alex"))
+
+
 class AppClass:
     def __init__(self, cfg):
         self.cfg = cfg
@@ -51,6 +121,8 @@ class AppClass:
         self.global_step = int(cfg.get("global_step", 0))
         self.logger: Optional[Logger] = None
         self.device = device_from_cfg(cfg)
+        # wall-clock seconds of the last eval, mesh and checkpoint
+        self.timings: Dict[str, float] = {}
 
     # -------------------------------------------------------------- contract
 
@@ -222,6 +294,55 @@ class AppClass:
         if cand and os.path.exists(cand):
             return cand, False
         return None, False
+
+    def prev_stage_ckpt(self) -> str:
+        """The previous stage's ``last.ckpt``: this run's checkpoint path
+        with the stage class name (``STAGE_CLS``, part of the log group)
+        replaced by the previous stage's (``PREV_CLS``)."""
+        cand = os.path.join(
+            self.cfg.log["dir"], "checkpoints", "last.ckpt"
+        ).replace(self.STAGE_CLS, self.PREV_CLS)
+        if not os.path.exists(cand):
+            raise FileNotFoundError(
+                f"{self.STAGE_CLS} needs the previous-stage ckpt "
+                f"(looked at {cand}); pass app.trainer.ckpt explicitly")
+        return cand
+
+    def save_timed(self, path: str, payload: Dict[str, Any]) -> None:
+        """Write a checkpoint; its seconds and bytes go to ``timings`` and
+        the log."""
+        t0 = time.perf_counter()
+        ckpt_io.save_checkpoint(path, payload)
+        self.timings["ckpt_s"] = time.perf_counter() - t0
+        self.timings["ckpt_bytes"] = os.path.getsize(path)
+        self.get_logger().log({f"train/metric/etc/{k}": v
+                               for k, v in self.timings.items()
+                               if k.startswith("ckpt")},
+                              step=self.global_step)
+
+    def render_image(self, data: Dict[str, np.ndarray],
+                     keys: Sequence[str], fwd: Callable) -> Dict[str, np.ndarray]:
+        """One test image through ``fwd(*chunk)`` in chunks of
+        ``eval_bs`` rays, where ``chunk`` holds the image's ``keys`` on the
+        device. Returns each output as an ``[H, W]`` or ``[H, W, C]``
+        array; an ``etc/overflow`` output is tracked and left out."""
+        width, height = self.test_dataset.image_size
+        n = len(data["rgbs"])
+        results: Dict[str, List[np.ndarray]] = {}
+        for st in range(0, n, self.eval_bs):
+            en = min(st + self.eval_bs, n)
+            out = fwd(*(self.to_device(data[k][st:en]) for k in keys))
+            ovf = out.pop("etc/overflow", None)
+            if ovf is not None:
+                self.track_overflow(ovf)
+            for k, v in out.items():
+                results.setdefault(k, []).append(v.cpu().numpy())
+
+        def to_img(chunks):
+            a = np.concatenate(chunks, 0).reshape(height, width, -1)
+            return a[..., 0] if a.shape[-1] == 1 else a
+
+        return {k: to_img(v) for k, v in results.items()}
 
     def resolve_eval_ckpt(self) -> str:
         """``app.eval.ckpt``, else the last.ckpt next to the config file

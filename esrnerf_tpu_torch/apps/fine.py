@@ -17,13 +17,13 @@ from __future__ import annotations
 import os
 import shutil
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from esrnerf_tpu_torch.apps.base import AppClass, import_class
+from esrnerf_tpu_torch.apps.base import AppClass, import_class, loss_and_grads
 from esrnerf_tpu_torch.config import save_cfg
 from esrnerf_tpu_torch.data.base import LightDict
 from esrnerf_tpu_torch.data.sampler import BatchSampler
@@ -35,25 +35,6 @@ from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import mesh as meshutil
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import loss2psnr, rgb_lpips, rgb_ssim
-
-
-def _leaves(tree, prefix=()) -> List[Tuple[tuple, torch.Tensor]]:
-    if isinstance(tree, dict):
-        out = []
-        for k, v in tree.items():
-            out += _leaves(v, prefix + (k,))
-        return out
-    return [(prefix, tree)]
-
-
-def _unflatten(paths, values) -> Dict:
-    out: Dict = {}
-    for path, v in zip(paths, values):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = v
-    return out
 
 
 def fine_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, *,
@@ -119,18 +100,10 @@ def build_fine_train_step(model, opt, cfg, device="cuda") -> Callable:
 
     def train_step(params, opt_state, batch, s_val, lr_scales, tv_flag,
                    smooth_grad_tv, sdf_tv_w, tv_dense):
-        flat = _leaves(params)
-        paths = [p for p, _ in flat]
-        leaves = [t.detach().requires_grad_(True) for _, t in flat]
-        p_graph = _unflatten(paths, leaves)
-        with record_function("fine/loss"):
-            loss, aux = fine_loss(model, p_graph, batch, s_val, tv_flag,
-                                  smooth_grad_tv, w_ent=w_ent, w_lin=w_lin,
-                                  white_bg=white_bg)
-        with record_function("fine/backward"):
-            gl = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = _unflatten(paths, [torch.zeros_like(t) if g is None else g
-                                   for t, g in zip(leaves, gl)])
+        aux, grads = loss_and_grads(
+            lambda p: fine_loss(model, p, batch, s_val, tv_flag,
+                                smooth_grad_tv, w_ent=w_ent, w_lin=w_lin,
+                                white_bg=white_bg), params, "fine")
 
         # in-place SDF TV as a gradient term (dense, or sparse on the
         # gradient's nonzero pattern)
@@ -184,8 +157,6 @@ class Fine(AppClass):
             self.step_end = self.n_iters * 10
         self.data_keys = ["rgbs", "rays_o", "rays_d", "viewdirs", "em_modes"]
         self.eval_bs = cfg.app["eval"]["batch_size"]
-        # wall-clock seconds of the last eval, mesh and checkpoint
-        self.timings: Dict[str, float] = {}
 
     def s_val_at(self, step: int) -> float:
         return (
@@ -249,14 +220,7 @@ class Fine(AppClass):
         ``last.ckpt``."""
         ckpt, is_resume = self.resolve_train_ckpt()
         if ckpt is None:
-            cand = os.path.join(
-                self.cfg.log["dir"], "checkpoints", "last.ckpt"
-            ).replace(self.STAGE_CLS, self.PREV_CLS)
-            if not os.path.exists(cand):
-                raise FileNotFoundError(
-                    f"{self.STAGE_CLS} needs the previous-stage ckpt "
-                    f"(looked at {cand}); pass app.trainer.ckpt explicitly")
-            ckpt = cand
+            ckpt = self.prev_stage_ckpt()
         data = self.train_dataset.all_data
         payload = ckpt_io.load_checkpoint(ckpt)
         r = payload["renderer"]
@@ -391,8 +355,7 @@ class Fine(AppClass):
         save_cfg(self.cfg)
 
     def save(self, path: str) -> None:
-        t0 = time.perf_counter()
-        ckpt_io.save_checkpoint(path, {
+        self.save_timed(path, {
             "renderer": {
                 "cfg": self.cfg.to_dict(),
                 **self.renderer.export_meta(),
@@ -406,12 +369,6 @@ class Fine(AppClass):
                 "optimizer": self.opt_state,
             },
         })
-        self.timings["ckpt_s"] = time.perf_counter() - t0
-        self.timings["ckpt_bytes"] = os.path.getsize(path)
-        self.get_logger().log({f"train/metric/etc/{k}": v
-                               for k, v in self.timings.items()
-                               if k.startswith("ckpt")},
-                              step=self.global_step)
 
     # ----------------------------------------------------------------- eval
 
@@ -435,27 +392,14 @@ class Fine(AppClass):
 
         for i in self.tqdm(img_idxes, desc="eval", leave=False):
             data = self.test_dataset[int(i)]
-            n = len(data["rgbs"])
             em = int(np.asarray(data["em_modes"]).reshape(-1)[0])
             pos_rt = torch.as_tensor(np.asarray(data["poses"][:3, :3]),
                                      device=self.device)
-            results: Dict[str, List[np.ndarray]] = {}
-            for st in range(0, n, self.eval_bs):
-                en = min(st + self.eval_bs, n)
-                ro, rd, vd = (self.to_device(data[k][st:en])
-                              for k in ("rays_o", "rays_d", "viewdirs"))
-                out = self.eval_chunk_retry(
+            imgs = self.render_image(
+                data, ("rays_o", "rays_d", "viewdirs"),
+                lambda ro, rd, vd: self.eval_chunk_retry(
                     self.renderer.forward_evaluate, self.params, ro, rd, vd,
-                    em, pos_rt, s_val)
-                self.track_overflow(out.pop("etc/overflow"))
-                for k, v in out.items():
-                    results.setdefault(k, []).append(v.cpu().numpy())
-
-            def to_img(chunks):
-                a = np.concatenate(chunks, 0).reshape(height, width, -1)
-                return a[..., 0] if a.shape[-1] == 1 else a
-
-            imgs = {k: to_img(v) for k, v in results.items()}
+                    em, pos_rt, s_val))
             wbg = imgs["etc/white_bg"] * self.white_bg
             final = {}
             for k, v in imgs.items():

@@ -30,11 +30,13 @@ def mlp_dtype_from_cfg(cfg):
 
 
 def init_mlp(
-    generator: torch.Generator, dims: Sequence[int], device="cpu"
+    generator: torch.Generator, dims: Sequence[int], device="cpu",
+    zero_final_bias: bool = False,
 ) -> MLPParams:
     """``dims = [in, hidden..., out]``; weights and biases
-    ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` like ``torch.nn.Linear``. Draws
-    on ``generator``'s device, then moves to ``device``."""
+    ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` like ``torch.nn.Linear``, the
+    last bias zero with ``zero_final_bias``. Draws on ``generator``'s
+    device, then moves to ``device``."""
     params: MLPParams = {}
     n = len(dims) - 1
     gdev = generator.device
@@ -46,7 +48,9 @@ def init_mlp(
             return (u * (2 * bound) - bound).to(device)
 
         params[f"w{i}"] = uniform((dims[i], dims[i + 1]))
-        params[f"b{i}"] = uniform((dims[i + 1],))
+        params[f"b{i}"] = (torch.zeros((dims[i + 1],), device=device)
+                           if zero_final_bias and i == n - 1
+                           else uniform((dims[i + 1],)))
     return params
 
 

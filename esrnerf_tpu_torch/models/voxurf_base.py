@@ -13,12 +13,12 @@ reference) is :func:`fixed_size_nonzero`, a cumsum + scatter that keeps the
 ray-major order, the same ``n1``/``n2`` counts and the same overflow, and
 never syncs the host.
 
-Also here: the training-ray filter
+Also here: the training-ray filter in both styles
 (:meth:`VoxurfGeometry.filter_rays_in_maskcache`), the SDF value and
 gradient sampler of the eval normals, and the mesh extraction. Not ported
 yet: the SDF surface-band cull (``band_occ64``,
-``query_nearest64``; the fine stage sets ``surf_band_factor: 0``),
-``march_ray_slots`` and the DVGO-style ray filter.
+``query_nearest64``; the fine and coarse stages set
+``surf_band_factor: 0``) and ``march_ray_slots``.
 """
 
 from __future__ import annotations
@@ -296,6 +296,14 @@ class VoxurfGeometry:
         return gridops.grid_sample_3d(grid, pts, self.xyz_min_t,
                                       self.xyz_max_t)
 
+    def sample_grid_sorted(self, grid: torch.Tensor, pts: torch.Tensor,
+                           n_valid=None) -> torch.Tensor:
+        """One grid at the cell-sorted march points: the corner gather
+        (K-4) forward, the splat (K-3) backward. Pad chunks read zeros."""
+        return splatops.sorted_trilinear_sample(
+            grid, pts.reshape(-1, 3), self.xyz_min_t, self.xyz_max_t,
+            n_valid)
+
     def sample_grids_sorted(self, grids, pts: torch.Tensor, n_valid=None):
         """Several same-resolution grids at the cell-sorted march points
         through one gather; pad chunks read zeros."""
@@ -571,20 +579,27 @@ class VoxurfGeometry:
     @torch.no_grad()
     def filter_rays_in_maskcache(self, rays_o: np.ndarray, rays_d: np.ndarray,
                                  chunk: int,
-                                 style: str = "voxurf") -> np.ndarray:
-        """Host bool mask of the rays whose dense samples hit the mask cache
-        at least once, ``chunk`` rays at a time on the geometry's device.
-        Only the ``voxurf`` sampler (far = 1e9) is ported."""
-        if style != "voxurf":
-            raise NotImplementedError(
-                f"filter_rays_in_maskcache: style '{style}' is not ported")
+                                 style: str = "dvgo") -> np.ndarray:
+        """Host bool mask of the rays whose samples hit the mask cache at
+        least once, ``chunk`` rays at a time on the geometry's device. Both
+        samplers are ported: ``dvgo`` (the coarse stage's: DVGO's
+        un-normalised march between ``near`` and ``far``) and ``voxurf``
+        (the fine stage's: the march's sampler with far = 1e9)."""
+        if style not in ("dvgo", "voxurf"):
+            raise ValueError(f"unknown ray-filter style '{style}'")
         out = np.ones(len(rays_o), dtype=bool)
         for st in range(0, len(rays_o), chunk):
             en = min(st + chunk, len(rays_o))
             ro = torch.as_tensor(rays_o[st:en], device=self.device)
             rd = torch.as_tensor(rays_d[st:en], device=self.device)
-            rs = self.sample_dense(ro, rd)
-            ok = rs.valid & self.mask_cache.query(rs.pts)
+            if style == "voxurf":
+                rs = self.sample_dense(ro, rd)
+                ok = rs.valid & self.mask_cache.query(rs.pts)
+            else:
+                pts, outb = rayops.sample_rays_dvgo(
+                    ro, rd, self.xyz_min_t, self.xyz_max_t, self.near,
+                    self.far, self.stepsize, self.voxel_size, self.n_samples)
+                ok = ~outb & self.mask_cache.query(pts)
             out[st:en] = ok.any(-1).cpu().numpy()
         return out
 

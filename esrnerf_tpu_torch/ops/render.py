@@ -1,8 +1,9 @@
 """Transmittance scans and NeuS alpha on dense ``[N, S]`` layouts.
 
-Port of the parts of ``esrnerf_tpu/ops/render.py`` that the fine step uses:
-the dense masked ``alpha2weights`` (the semantics the scan kernel must
-equal) and the interp-variant NeuS alpha with ragged neighbour pairing.
+Port of the parts of ``esrnerf_tpu/ops/render.py`` that the ported stages
+use: the dense masked ``alpha2weights`` (the semantics the scan kernel must
+equal), the interp-variant NeuS alpha with ragged neighbour pairing, and
+DVGO's cumulative-product weights.
 """
 
 from __future__ import annotations
@@ -18,6 +19,16 @@ def exclusive_cumprod(p: torch.Tensor) -> torch.Tensor:
     """``[1, p0, p0*p1, ...]`` along the last axis (same length)."""
     cp = torch.cumprod(p, dim=-1)
     return torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+
+
+def ray_marching_weights_dvgo(
+        alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DVGO's weights on ``alpha [N, S]``: ``alphainv_cum = [1,
+    cumprod(clamp(1 - alpha, 1e-10))]`` (S + 1 long) and ``weights = alpha
+    * alphainv_cum[..., :-1]``. Autograd gives the gradient."""
+    cum = torch.cumprod(torch.clamp(1.0 - alpha, min=1e-10), dim=-1)
+    alphainv_cum = torch.cat([torch.ones_like(alpha[..., :1]), cum], dim=-1)
+    return alpha * alphainv_cum[..., :-1], alphainv_cum
 
 
 def alpha2weights(

@@ -1,9 +1,11 @@
-"""Total-variation gradient on dense ``[X, Y, Z, C]`` grids.
+"""Total-variation regularisers on dense ``[X, Y, Z, C]`` grids.
 
-Port of ``esrnerf_tpu/ops/tv.py::tv_grad``: the reference applies TV as an
-in-place gradient op after backward; here it is a gradient term added to
-the parameter gradient, with the same clamped-diff / 6 semantics and
-sparse mode.
+Port of ``esrnerf_tpu/ops/tv.py``. :func:`total_variation` is the coarse
+stage's loss term (masked mean absolute first difference; autograd gives
+its gradient). :func:`tv_grad` is the fine stage's: the reference applies
+TV as an in-place gradient op after backward; here it is a gradient term
+added to the parameter gradient, with the same clamped-diff / 6 semantics
+and sparse mode.
 """
 
 from __future__ import annotations
@@ -16,6 +18,30 @@ def _pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
     """Zero-pad ``x`` by ``lo``/``hi`` along ``axis``."""
     spec = [0, 0] * (x.ndim - 1 - axis) + [lo, hi]
     return F.pad(x, spec)
+
+
+def total_variation(v: torch.Tensor,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean ``|first difference|`` along x, y and z, averaged over the
+    axes. With ``mask [X, Y, Z]`` (bool) a difference counts only where
+    both voxels are in the mask; each axis's mean divides by its count of
+    such entries (at least 1)."""
+    def abs_(x):
+        # |x| whose gradient at 0 is +1, as the reference's: the coarse
+        # stage's colour grids start at zero, where torch.abs's is 0
+        return torch.where(x >= 0, x, -x)
+
+    diffs = [abs_(torch.diff(v, dim=a)) for a in range(3)]
+    if mask is None:
+        return (diffs[0].mean() + diffs[1].mean() + diffs[2].mean()) / 3.0
+    out = 0.0
+    for a, d in enumerate(diffs):
+        n = mask.shape[a]
+        mm = (mask.narrow(a, 1, n - 1) & mask.narrow(a, 0, n - 1))[..., None]
+        mm = mm.expand(d.shape)
+        denom = torch.clamp(mm.sum(), min=1)
+        out = out + torch.where(mm, d, torch.zeros_like(d)).sum() / denom
+    return out / 3.0
 
 
 def tv_grad(

@@ -92,3 +92,9 @@ class Adam:
             tree_map(upd, params[g], grads[g], state.mu[g], state.nu[g])
         return params, state
 
+
+
+def make_pervoxel_lr(count: torch.Tensor) -> torch.Tensor:
+    """Per-voxel LR ``count / count.max()`` (f32) from a view count."""
+    c = count.to(torch.float32)
+    return c / c.max()

@@ -1,13 +1,20 @@
 """Learning-rate schedules (host-side float math, fed to the train step as
 plain floats). Port of ``esrnerf_tpu/optim/schedule.py``.
 
-The warm-up + cosine ``CosineLR`` returns a per-step multiplicative
-``decay_factor`` (reference ``app/utils/optimizer.py:231-275``).
+The exponential decay :func:`exp_decay_factor` (alphamask, coarse) is a
+per-step multiplicative factor; the warm-up + cosine ``CosineLR`` (fine)
+returns a per-step multiplicative ``decay_factor`` (reference
+``app/utils/optimizer.py:231-275``).
 """
 
 from __future__ import annotations
 
 import math
+
+
+def exp_decay_factor(lr_decay: float) -> float:
+    """Per-step factor that reaches 0.1x every ``lr_decay * 1000`` steps."""
+    return 0.1 ** (1.0 / (lr_decay * 1000.0))
 
 
 class CosineLR:

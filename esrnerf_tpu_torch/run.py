@@ -6,8 +6,11 @@
 Mirrors the JAX package's ``run.py``: stage classes resolve by the same
 dotted names (``app.cls``), the resolved config is saved into the log dir
 with a copy of the port's package, and a training run resumes from
-``<log.dir>/checkpoints/last.ckpt``. Only the fine stage is ported
-(``fine.Fine``); the other stage names raise ``NotImplementedError``.
+``<log.dir>/checkpoints/last.ckpt``. The first three stages are ported
+(``coarse.AlphaMask``, ``coarse.Coarse``, ``fine.Fine``): with one
+``log.root`` and ``log.name``, coarse finds alphamask's ``last.ckpt`` and
+fine finds coarse's by path, so they chain without ``app.trainer.ckpt``.
+``fine.LTS`` and ``fine.PDRA`` raise ``NotImplementedError``.
 ``system.device=cpu`` runs on the CPU (the plain PyTorch versions of the
 kernels); any other value, including the configs' ``tpu`` or none, means
 the GPU, and the run raises when CUDA is not available.
@@ -19,12 +22,15 @@ import argparse
 import os
 import shutil
 import sys
+import time
 
 # stage-class dotted name -> implementing module/class in this package
 STAGE_REGISTRY = {
+    "coarse.AlphaMask": "esrnerf_tpu_torch.apps.alphamask.AlphaMask",
+    "coarse.Coarse": "esrnerf_tpu_torch.apps.coarse.Coarse",
     "fine.Fine": "esrnerf_tpu_torch.apps.fine.Fine",
 }
-NOT_PORTED = ("coarse.AlphaMask", "coarse.Coarse", "fine.LTS", "fine.PDRA")
+NOT_PORTED = ("fine.LTS", "fine.PDRA")
 
 
 def _snapshot_code(log_dir: str) -> None:
@@ -49,8 +55,9 @@ def _snapshot_code(log_dir: str) -> None:
 
 
 def main(argv=None):
-    """Run one stage; returns the stage object (its ``timings`` and model
-    stay readable after the run)."""
+    """Run one stage; returns the stage object (its ``timings``, with the
+    data and model set-up's ``setup_s``, and its model stay readable after
+    the run)."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-cn", "--config-name", required=True,
                         help="path to a composed YAML config")
@@ -79,8 +86,10 @@ def main(argv=None):
     seed_everything(cfg.system["seed"])
 
     method = import_class(cls_path)(cfg)
+    t0 = time.perf_counter()
     method.load_dataset()
     method.load_model()
+    method.timings["setup_s"] = time.perf_counter() - t0
     method.process()
     if method.logger is not None:
         method.logger.finish()

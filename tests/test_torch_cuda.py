@@ -286,3 +286,75 @@ def test_gather_parts_unaligned_table(dev):
     for mode in gb.MODES:
         assert torch.equal(gb.gather_parts(off, mode, 3),
                            gb.gather_parts(tbl, mode, 3))
+
+
+# ------------------------------------------------- the alphamask stage's K-3
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_splat_kernel_on_dvgo_points(dev, C):
+    """K-3 as DVGO's grid gradient (``trilinear_splat``) on the alphamask
+    step's kind of input: 2^21 + 12,345 unsorted points over a 101x97x103
+    grid, about 40% outside the bbox and 12,288 exactly on its faces,
+    against the plain version at rtol 5e-4 / atol 5e-5 of its max (float
+    atomics add in another order)."""
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.ops import splat as splatops
+
+    rng = np.random.default_rng(C)
+    M, shape = 2**21 + 12345, (101, 97, 103, C)
+    pts = rng.uniform(-1.25, 1.25, (M, 3)).astype(np.float32)
+    for a in range(3):  # the min face on x, the max faces on y and z
+        pts[4096 * a:4096 * (a + 1), a] = -1.0 if a == 0 else 1.0
+    ct = rng.normal(size=(M, C)).astype(np.float32)
+    mn, mx = np.full(3, -1, np.float32), np.ones(3, np.float32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        on = lambda x: torch.as_tensor(x, device=d)
+        n0 = kernels.launches["splat"]
+        out.append(splatops.trilinear_splat(shape, on(pts), on(ct), on(mn),
+                                            on(mx)).cpu())
+        assert kernels.launches["splat"] == n0 + (d.type == "cuda")
+    got, want = out
+    assert float(want.abs().max()) > 0
+    _close(got, want, 5e-4, 5e-5 * float(want.abs().max()))
+    # the faces' corners outside the grid were dropped, the ones on it kept
+    assert float(want[0].abs().sum()) > 0 and float(want[:, -1].abs().sum()) > 0
+
+
+def test_voxel_count_views_on_card_matches_cpu(dev):
+    """DVGO's view counts on the card (K-3 with atomics) against the CPU
+    (plain version): per view the summed weight ``w`` within rtol 1e-5 /
+    atol 2e-5 (the card's elementwise kernels contract the sampler's
+    multiply-adds into FMAs: points an ulp apart move a sample's corner
+    weights by ~3e-6 at this grid's 50 voxels per 2 units);
+    the counts equal wherever every view's ``|w - 1|`` exceeds 1e-4. The
+    number of voxels inside that band is printed."""
+    from esrnerf_tpu_torch.config import load_cfg
+    from esrnerf_tpu_torch.models.dvgo import DVGO
+
+    cfg = load_cfg("cfg/app/alphamask.yaml",
+                   ["app.phase=train", "data.cls=x", "data.root=x",
+                    "data.scene=x", "app.model.num_voxels=125000"])
+    rng = np.random.default_rng(10)
+    ro, rd = [], []
+    for _ in range(4):
+        c = rng.normal(size=3)
+        c = c / np.linalg.norm(c) * 2.5
+        ro.append(np.broadcast_to(c, (16384, 3)))
+        rd.append(rng.uniform(-0.8, 0.8, (16384, 3)) - c)
+    ro, rd = np.asarray(ro, np.float32), np.asarray(rd, np.float32)
+    models = [DVGO(cfg, 0.5, 4.0, [-1] * 3, [1] * 3, device=d)
+              for d in (dev, "cpu")]
+    band = np.zeros(models[0].world_size + (1,), bool)
+    for i in range(len(ro)):
+        wd, wc = (m.view_weights(ro[i], rd[i], 4096).cpu().numpy()
+                  for m in models)
+        np.testing.assert_allclose(wd, wc, rtol=1e-5, atol=2e-5)
+        band |= (np.abs(wd - 1) <= 1e-4) | (np.abs(wc - 1) <= 1e-4)
+    cd, cc = (m.voxel_count_views(ro, rd, 4096).cpu().numpy()
+              for m in models)
+    print(f"voxel_count_views: {int(band.sum())} of {band.size} voxels "
+          "within 1e-4 of w = 1")
+    assert (cc == len(ro)).sum() > 0
+    np.testing.assert_array_equal(cd[~band], cc[~band])
