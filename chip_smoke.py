@@ -17,9 +17,10 @@ Phases, in order; any failure exits non-zero:
    against the script's own sequential float32 oracle, and the scan's
    cp.async route timed beside its TMA route; and the K-3 row again with
    every value zero (the atomics' share of its time);
-4. check: one small fine step, one small alphamask step and one small
-   coarse step on the card against the same steps on the CPU (plain
-   versions): loss terms, march counters and every group's gradient;
+4. check: one small fine step, one small alphamask step, one small coarse
+   step and one small LTS step (from the same random draws) on the card
+   against the same steps on the CPU (plain versions): loss terms, march
+   counters (both marches of the LTS step) and every group's gradient;
 5. train: the fine-stage train step at full width (cfg/app/fine.yaml: 256^3
    = 16,777,216 voxels, 8,192 rays, 192-wide heads; the benchmark's ball
    scene and budgets) through build_fine_train_step, 3 warm-up and 12
@@ -32,7 +33,14 @@ Phases, in order; any failure exits non-zero:
    replay of each captured launch: kernel against plain version (K-3 at
    rtol 5e-4 / atol 5e-5 of the plain result's max, K-4 and K-1 bitwise,
    K-2 bitwise against the oracle), times with the L2 warm and cold, and
-   bound;
+   bound; then the LTS train step at full width (cfg/app/lts.yaml, 256^3,
+   8,192 rays, 100 LTS points x 256 secondary rays = 25,600; the budgets
+   and ball scene of scripts/bench_lts.py) through build_lts_train_step, 2
+   warm-up and 10 timed steps: overflow 0 on both marches, finite losses,
+   K-1..K-4 launched (by the secondary march too), a profile by the lts/*
+   ranges, peak memory, one lts_eval_chunk of 256 surface points (65,536
+   secondary rays) timed, and the first step's launches (captured, when
+   every cotangent is still alive) replayed as the fine step's;
 6. gather benchmarks: the two microbenchmark entry points
    (esrnerf_tpu_torch.scripts.bench_gather_grid, K-5, tight and random
    spans; bench_gather_parts, K-6, modes dma, build and full) run in
@@ -48,7 +56,10 @@ Phases, in order; any failure exits non-zero:
    eval with metrics and a 512^3 mesh, checkpoints; a resume to step 28;
    then the test_nv eval of the saved checkpoint. Asserts finite metrics,
    overflow 0, the eval files, the resume step, and the kernels launched
-   in train (K-1..K-4) and in eval (K-1, K-4);
+   in train (K-1..K-4) and in eval (K-1, K-4). Then the LTS stage from that
+   fine checkpoint, found by path: 16 steps (the config's budgets), eval
+   with the envmap images and the mesh, checkpoint, a resume to step 18
+   and the test_nv eval of the saved checkpoint, with the same asserts;
 8. chain: the stages upstream of fine and fine itself through
    esrnerf_tpu_torch.run.main on another synthetic 256x256 scene, each
    finding the previous stage's checkpoint by path: alphamask at full
@@ -66,7 +77,8 @@ Phases, in order; any failure exits non-zero:
    coarse test_nv (K-1, K-4); then one more alphamask and coarse step
    each is captured and replayed as in phase 5.
 
-Prints one JSON line per phase, then the kernel table as one JSON object,
+Prints one JSON line per phase, then the kernel table as one JSON object
+(``launches``: the fine step's; ``launches_lts_step``: the LTS step's),
 the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -701,8 +713,240 @@ def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12):
     return res, launches, captured
 
 
+# ------------------------------------------------- the LTS step (phase 5)
+
+# full-width LTS step: cfg/app/lts.yaml with scripts/bench_lts.py's budgets
+# (phase 1: 160 masked samples per primary ray, 96 per secondary ray; heads:
+# 8 per ray each), 8,192 rays, 100 LTS points x 256 secondary rays
+LTS_OVERRIDES = [
+    "app.phase=train", "data.cls=esrnerf.ESRNeRF", "data.root=unused",
+    "data.scene=unused", f"app.trainer.batch_size={N_RAYS}",
+    "app.model.points_budget_masked_per_ray=160",
+    "app.model.points_budget_masked_per_2ndray=96",
+    "app.model.phase1_block=8",
+    "app.model.points_budget_per_ray=8",
+    "app.model.points_budget_per_2ndray=8",
+]
+# bench_lts.py's step arguments: s_val, TV on, smooth-grad TV, SDF TV weight
+LTS_S_VAL = 220.0
+LTS_TV = dict(tv_flag=1.0, smooth_grad_tv=0.02, sdf_tv_w=1e-4, tv_dense=True)
+
+
+def build_lts(device, num_voxels, overrides=(), mask_res=64):
+    """cfg/app/lts.yaml's ESRNeRF on ``device`` over the benchmark's ball
+    scene (a radius-0.7 occupancy ball as the previous stage's mask)."""
+    from esrnerf_tpu_torch.config import load_cfg
+    from esrnerf_tpu_torch.models.esrnerf import ESRNeRF
+
+    cfg = load_cfg("cfg/app/lts.yaml", LTS_OVERRIDES + list(overrides),
+                   root_dir=REPO)
+    model = ESRNeRF(cfg, 0.5, 4.0, [-1, -1, -1], [1, 1, 1],
+                    _ball_mask_cache(device, mask_res), s_val=LTS_S_VAL,
+                    num_voxels=num_voxels)
+    return cfg, model
+
+
+def make_lts_batch(seed, n, device):
+    """scripts/bench_lts.py's batch generator (with ``uncert_masks``)."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    o = r.normal(size=(n, 3)).astype(np.float32)
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 2.0
+    d = (r.normal(scale=0.3, size=(n, 3)) - o).astype(np.float32)
+    vd = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    b = {"rays_o": o, "rays_d": d, "viewdirs": vd,
+         "em_modes": r.integers(0, 2, n),
+         "uncert_masks": r.uniform(size=n) > 0.3,
+         "rgbs": r.uniform(0, 1, (n, 3)).astype(np.float32)}
+    return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+
+def check_small_lts_step(device, seed=0):
+    """One small LTS step on ``device`` against the plain versions on the
+    CPU: same parameters, batch and random draws; the loss terms at rtol
+    1e-4, both marches' counters equal, and each group's gradient within
+    1e-4 of its max |g|."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.lts import build_lts_train_step
+    from esrnerf_tpu_torch.models.esrnerf import LTSDraws
+
+    ov = ["app.model.rgbnet_width=32", "app.model.rgbnet_depth=2",
+          "app.model.tonemap_width=32", "app.model.brdfnet_width=32",
+          "app.model.brdfnet_depth=2", "app.model.num_ltspts=16",
+          "app.model.num_2ndrays=4",
+          "app.model.points_budget_masked_per_ray=432",
+          "app.model.points_budget_per_ray=16",
+          "app.model.points_budget_masked_per_2ndray=128",
+          "app.model.points_budget_per_2ndray=16",
+          "system.compute_dtype=float32"]
+    out, params_cpu, draws_cpu = {}, None, None
+    for dev in (torch.device("cpu"), device):
+        cfg, model = build_lts(dev, 32**3, ov, mask_res=16)
+        if params_cpu is None:
+            params_cpu = model.init_params(torch.Generator().manual_seed(seed))
+            rng = np.random.default_rng(seed)
+            X, Y, Z = model.geo.world_size
+            x, y, z = np.mgrid[-1:1:X * 1j, -1:1:Y * 1j, -1:1:Z * 1j]
+            sdf = np.sqrt(x**2 + y**2 + z**2) - 0.5 + rng.normal(
+                scale=0.03, size=x.shape)
+            params_cpu["sdf"] = torch.as_tensor(
+                sdf.astype(np.float32)[..., None])
+            for g in ("off_color", "emo_color", "brdf"):
+                params_cpu[g] = torch.as_tensor(rng.normal(
+                    scale=0.3, size=params_cpu[g].shape).astype(np.float32))
+            draws_cpu = model.training_draws(
+                torch.Generator().manual_seed(seed + 1), 64 * 16)
+        on = lambda t: ({k: on(v) for k, v in t.items()}
+                        if isinstance(t, dict) else t.to(dev))
+        step = build_lts_train_step(model, _GradsOut(), cfg, device=dev)
+        grads, _, aux = step(on(params_cpu), None,
+                             make_lts_batch(seed, 64, dev), 40.0,
+                             {k: 1.0 for k in params_cpu}, 1.0, 0.05, 1e-4,
+                             True, draws=LTSDraws(
+                                 *(d.to(dev) for d in draws_cpu)))
+        out[dev.type] = (grads, [float(x) for x in aux])
+    (g_c, aux_c), (g_d, aux_d) = out["cpu"], out[device.type]
+    if aux_c[4:] != aux_d[4:]:
+        raise AssertionError(f"LTS march counters differ: {aux_c} vs {aux_d}")
+    np.testing.assert_allclose(aux_d[:4], aux_c[:4], rtol=1e-4)
+    return {"mse": aux_d[0], "mse_cpu": aux_c[0], "off_mse": aux_d[2],
+            "emo_mse": aux_d[3], "overflow": aux_d[4],
+            "k1_frac": aux_d[5], "k2_frac": aux_d[6],
+            "k1_frac_2nd": aux_d[7], "k2_frac_2nd": aux_d[8],
+            "max_grad_err_rel": assert_grads_close(g_c, g_d)}
+
+
+# kernels the LTS step launches from its secondary march (by shape: that
+# march's N = num_ltspts * num_2ndrays rays, its K2 = N * 8 points)
+def _secondary_launches(records, n_sec):
+    out = {}
+    for r in records:
+        if r["kernel"] in ("scan_fwd", "scan_bwd"):
+            hit = r["alpha"].shape[0] == n_sec
+        else:
+            hit = "_secondary_radiance" in r["site"]
+        if hit:
+            out[r["kernel"]] = out.get(r["kernel"], 0) + 1
+    return out
+
+
+def train_lts_full_width(device, num_voxels, n_rays, warmup=2, timed=10):
+    """The LTS train step at full width (scripts/bench_lts.py's set-up);
+    returns its metrics, the launches per kernel over the timed steps, the
+    captured launches of the first warm-up step, and the live model and
+    parameters (for the eval chunk)."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.lts import build_lts_train_step
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.optim import Adam
+
+    t0 = time.perf_counter()
+    cfg, model = build_lts(device, num_voxels)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    opt = Adam({k: 1e-2 for k in params})  # bench_lts.py's learning rates
+    state = opt.init(params)
+    step = build_lts_train_step(model, opt, cfg, device=device)
+    batches = [make_lts_batch(i, n_rays, device) for i in range(4)]
+    gen = torch.Generator(device=device).manual_seed(1)
+    lrs = {k: 1.0 for k in params}
+    sync(device)
+    setup_s = time.perf_counter() - t0
+
+    def run(i):
+        nonlocal params, state
+        params, state, aux = step(params, state, batches[i % 4], LTS_S_VAL,
+                                  lrs, *LTS_TV.values(), generator=gen)
+        return aux
+
+    # the first warm-up step is captured for the launch replay: from the
+    # seed-0 weights every gradient is alive (after ~10 Adam steps at the
+    # benchmark's lr 1e-2 the emo heads saturate and the secondary
+    # march's emo-grid cotangents underflow to exactly 0)
+    t0 = time.perf_counter()
+    warm = []
+    captured = records_to(capture_launches(lambda: warm.append(run(0)),
+                                           depth=8), "cpu")  # off the peak
+    warm += [run(i) for i in range(1, warmup)]
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    auxes = [run(warmup + i) for i in range(timed)]
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+
+    aux = torch.stack([torch.stack(a) for a in warm + auxes]).cpu().numpy()
+    if not np.isfinite(aux).all():
+        raise AssertionError(f"non-finite LTS loss terms: {aux}")
+    if aux[:, 4].max() != 0.0:
+        raise AssertionError(f"LTS march overflow {aux[:, 4].max()} > 0 "
+                             "(primary or secondary)")
+    n_sec = model.num_ltspts * model.num_2ndrays
+    res = {
+        "num_voxels": num_voxels, "world_size": list(model.geo.world_size),
+        "n_rays": n_rays, "secondary_rays": n_sec, "timed_steps": timed,
+        "step_ms": dt / timed * 1e3, "rays_per_s": n_rays * timed / dt,
+        "secondary_rays_per_s": n_sec * timed / dt,
+        "setup_s": setup_s, "warmup_s": warm_s,
+        "mse_first": float(aux[0, 0]), "mse_last": float(aux[-1, 0]),
+        "off_mse_last": float(aux[-1, 2]), "emo_mse_last": float(aux[-1, 3]),
+        "overflow_max": float(aux[:, 4].max()),
+        **{f"{k}_max": float(aux[:, i].max()) for i, k in
+           ((5, "k1_frac"), (6, "k2_frac"), (7, "k1_frac_2nd"),
+            (8, "k2_frac_2nd"))},
+        "launches_per_step": {k: v / timed for k, v in launches.items()},
+    }
+    if device.type == "cuda":
+        res["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated(device) / 2**30
+    res["profile"] = prof = profile_steps(device, lambda i: run(99 + i))
+    res["idle_share"] = max(0.0, 1 - prof["device_busy_ms_per_step"]
+                            / res["step_ms"])
+    res["secondary_launches"] = _secondary_launches(captured, n_sec)
+    return res, launches, captured, (model, params)
+
+
+def lts_eval_chunk_timed(device, model, params, chunk=256, seed=0):
+    """One ``lts_eval_chunk`` of ``chunk`` surface points (``chunk`` x
+    num_2ndrays secondary rays) from an eval forward of the benchmark's
+    batch: finite, overflow 0, device ms per call."""
+    import torch
+
+    b = make_lts_batch(seed, N_RAYS, device)
+    out = model.forward_evaluate(params, b["rays_o"], b["rays_d"],
+                                 b["viewdirs"], 1, torch.eye(3, device=device),
+                                 LTS_S_VAL, render_pbr=True)
+    pp = out["pbr_points"]
+    n_live = int((~pp["pad"]).sum())
+    if n_live < chunk:
+        raise AssertionError(f"{n_live} surface points, want >= {chunk}")
+    args = [pp[k][:chunk] for k in ("pts", "viewdirs", "normal", "basecolor",
+                                    "roughness", "metallic")]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draws = torch.randn((chunk, model.num_2ndrays, 3), generator=gen,
+                        device=device)
+    fn = lambda: model.lts_eval_chunk(params, draws, *args, LTS_S_VAL)
+    res = fn()
+    ovf = float(res.pop("etc/overflow"))
+    for k, v in res.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"lts_eval_chunk {k}: non-finite")
+    if ovf != 0.0:
+        raise AssertionError(f"lts_eval_chunk secondary overflow {ovf}")
+    return {"chunk": chunk, "secondary_rays": chunk * model.num_2ndrays,
+            "surface_points": n_live, "overflow": ovf,
+            "ms": time_ms(fn, device, runs=3, calls=3),
+            "env_dir_mean": float(res["lin/env_dir"].mean())}
+
+
 # record_function ranges of the stages' train steps (``<stage>/<phase>``)
-STAGE_RANGES = ("fine/", "alphamask/", "coarse/")
+STAGE_RANGES = ("fine/", "alphamask/", "coarse/", "lts/")
 
 
 def profile_steps(device, run, n=3):
@@ -787,11 +1031,11 @@ def call_site(depth: int = 2) -> str:
     return " < ".join(out)
 
 
-def capture_launches(fn):
+def capture_launches(fn, depth=2):
     """Run ``fn()`` with the K-1..K-4 launch wrappers of ``ops/kernels.py``
     wrapped (here only, restored after): each launch records its kernel,
-    its call site and clones of its arguments (``out``, the splat table
-    accumulated into, only by shape) before it runs."""
+    its call site (``depth`` frames) and clones of its arguments (``out``,
+    the splat table accumulated into, only by shape) before it runs."""
     import inspect
 
     import torch
@@ -807,7 +1051,7 @@ def capture_launches(fn):
         def recording(*args, **kwargs):
             a = sig.bind(*args, **kwargs)
             a.apply_defaults()
-            rec = {"kernel": name, "site": call_site()}
+            rec = {"kernel": name, "site": call_site(depth)}
             for k, v in a.arguments.items():
                 if k == "out":
                     rec["out_shape"] = tuple(v.shape)
@@ -828,6 +1072,14 @@ def capture_launches(fn):
         for n, f in orig.items():
             setattr(kernels, n, f)
     return records
+
+
+def records_to(records, device):
+    """Captured launch records with their tensors moved to ``device``."""
+    import torch
+
+    return [{k: v.to(device) if torch.is_tensor(v) else v
+             for k, v in r.items()} for r in records]
 
 
 def replay_launches(records, device):
@@ -1265,6 +1517,105 @@ def train_stage(device, work, wh=256, n_train=12, n_test=3,
     }
 
 
+LTS_TRAIN_KERNELS = ("scan_fwd", "scan_bwd", "splat", "gather_weighted",
+                     "gather_raw")
+LTS_EVAL_KERNELS = ("scan_fwd", "gather_weighted", "gather_raw")
+
+
+def lts_stage(device, work, n_rays=N_RAYS, n_iters=16, resume_iters=18,
+              extra=()):
+    """The LTS stage through ``esrnerf_tpu_torch.run.main`` in ``work``,
+    after ``train_stage``: it finds that fine run's checkpoint by path (the
+    same ``log.root`` and ``log.name``), trains ``n_iters`` steps, evals
+    (``N_vis`` 1: renders, the envmap images, the mesh) and checkpoints,
+    resumes to ``resume_iters``, then evaluates the saved checkpoint
+    (test_nv)."""
+    import torch
+
+    from esrnerf_tpu_torch import run
+    from esrnerf_tpu_torch.ops import kernels
+
+    ov = ["-cn", os.path.join(REPO, "cfg/exp/esrnerf/giftbox_w/lts.yaml"),
+          f"data.root={work}/data", "data.scene=synth_ball",
+          f"log.root={work}/logs", "log.name=smoke", "log.offline=true",
+          "system.debug=true", "system.tqdm_iters=1",
+          f"system.device={device.type}", f"app.trainer.batch_size={n_rays}",
+          "app.trainer.N_vis=1", *extra]
+
+    def count(args):
+        kernels.reset_launches()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        app = run.main(args)
+        sync(device)
+        peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                if device.type == "cuda" else None)
+        return app, dict(kernels.launches), time.perf_counter() - t, peak
+
+    train = lambda n: ov + ["app.phase=train", f"app.trainer.n_iters={n}",
+                            f"app.trainer.save_every={n}",
+                            f"app.trainer.vis_every={n}"]
+    app, launches, train_s, peak = count(train(n_iters))
+    ld = app.cfg.log["dir"]
+    n_first = len(_stage_rows(app))
+    app2, _, resume_s, _ = count(train(resume_iters))
+    if app2.global_step != resume_iters - 1:
+        raise AssertionError(f"LTS resume ended at {app2.global_step}")
+    ckpt = os.path.join(ld, "checkpoints", "last.ckpt")
+    app3, ev_launches, test_nv_s, _ = count(
+        ov + ["app.phase=test_nv", f"app.eval.ckpt={ckpt}"])
+
+    rows = _stage_rows(app2)
+    train_rows = [r for r in rows if "train/metric/srgb/MSE" in r]
+    if [r["step"] for r in train_rows] != list(range(resume_iters)):
+        raise AssertionError(
+            f"LTS steps logged: {[r['step'] for r in train_rows]}")
+    if rows[n_first]["step"] != n_iters:
+        raise AssertionError(f"the resumed LTS run did not start at {n_iters}")
+    ovf = max(r["train/metric/etc/overflow"] for r in train_rows)
+    if ovf != 0.0:
+        raise AssertionError(f"LTS train march overflow {ovf} > 0")
+    for a, step in ((app, n_iters - 1), (app2, resume_iters - 1),
+                    (app3, resume_iters - 1)):
+        _assert_eval_files(a, step, mesh=True)
+        for name in ("envmap.png", "envmap_gamma.png"):
+            path = os.path.join(a.cfg.log["dir"], "image", f"{step:010}",
+                                "etc", name)
+            if not os.path.getsize(path):
+                raise AssertionError(f"empty {path}")
+    missing = ([k for k in LTS_TRAIN_KERNELS if launches[k] == 0]
+               + [f"test_nv {k}" for k in LTS_EVAL_KERNELS
+                  if ev_launches[k] == 0])
+    if missing and device.type == "cuda":
+        raise AssertionError(f"kernels not launched by the LTS stage: "
+                             f"{missing}")
+    # synchronised steps (logged every step) but the first of each run
+    steps = [r["train/metric/etc/sec_per_step"] * 1e3 for r in train_rows
+             if r["step"] not in (0, n_iters)]
+    ev = _stage_rows(app3)[-1]
+    return {
+        "n_rays": n_rays, "world_size": list(app.renderer.geo.world_size),
+        "setup_s": app.timings["setup_s"], "train_s": train_s,
+        "resume_s": resume_s, "test_nv_s": test_nv_s,
+        "median_step_ms": float(np.median(steps)), "step_ms": steps,
+        "eval_s_per_image": app3.timings["eval_s_per_image"],
+        "mesh_s": app3.timings["mesh_s"],
+        "mesh_verts": app3.timings["mesh_verts"],
+        "ckpt_s": app2.timings["ckpt_s"],
+        "ckpt_bytes": app2.timings["ckpt_bytes"],
+        "train_peak_memory_gb": peak,
+        "mse_first": train_rows[0]["train/metric/srgb/MSE"],
+        "mse_last": train_rows[-1]["train/metric/srgb/MSE"],
+        **{f"{k}_max": max(r[f"train/metric/etc/{k}"] for r in train_rows)
+           for k in ("k1_frac", "k2_frac", "k1_frac_2nd", "k2_frac_2nd")},
+        "test_nv": {k.split("/metric/")[1]: v for k, v in ev.items()
+                    if "/metric/" in k},
+        "launches_train": {k: v for k, v in launches.items() if v},
+        "launches_test_nv": {k: v for k, v in ev_launches.items() if v},
+    }
+
+
 # ------------------------------------------------------------- phase 8
 
 # kernels each path of the chain must launch
@@ -1554,6 +1905,7 @@ def main() -> int:
 
     emit({"phase": "check", **check_small_step(device)})
     emit({"phase": "check_upstream", **check_small_upstream_steps(device)})
+    emit({"phase": "check_lts", **check_small_lts_step(device)})
 
     res, launches, captured = train_full_width(device, NUM_VOXELS, N_RAYS)
     res["device"] = smi
@@ -1575,17 +1927,50 @@ def main() -> int:
     del res, captured
     torch.cuda.empty_cache()
 
+    res, lts_launches, captured, (model, params) = train_lts_full_width(
+        device, NUM_VOXELS, N_RAYS)
+    res["device"] = smi
+    res["eval_chunk"] = lts_eval_chunk_timed(device, model, params)
+    del model, params
+    emit({"phase": "lts_train", **res})
+    missing = [k for k in _CAPTURED if lts_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the LTS step: "
+                             f"{missing}")
+    sec = res["secondary_launches"]
+    if not {"scan_fwd", "scan_bwd", "splat", "gather_weighted",
+            "gather_raw"} <= set(sec):
+        raise AssertionError(f"the secondary march launched only {sec}")
+    in_step = res["profile"]["port_kernels_ms_per_step"]
+    emit({"phase": "lts_in_step", "device": smi, "kernels": {
+        k: {"ms_per_step": in_step[k],
+            "launches_per_step": res["launches_per_step"][k]}
+        for k in _CAPTURED}})
+    seen = {r["kernel"] for r in captured}
+    if seen != set(_CAPTURED):
+        raise AssertionError(f"captured LTS step launched only {sorted(seen)}")
+    replay_launches([dict(r, site="lts: " + r["site"])
+                     for r in records_to(captured, device)], device)
+    del res, captured
+    torch.cuda.empty_cache()
+
     gb_rows = check_gather_bench(device)
     zero = [r["name"] for r in gb_rows if r["launches"] == 0]
     if zero:
         raise AssertionError(f"benchmark kernels not launched: {zero}")
     rows += gb_rows
+    for r in rows:
+        r["launches_lts_step"] = lts_launches.get(r["name"], 0)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="esr_smoke_") as work:
         tr = train_stage(device, work)
-    tr["device"] = smi
-    emit({"phase": "trainer", **tr})
+        tr["device"] = smi
+        emit({"phase": "trainer", **tr})
+        torch.cuda.empty_cache()
+        lt = lts_stage(device, work)
+    lt["device"] = smi
+    emit({"phase": "lts_trainer", **lt})
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="esr_chain_") as work:

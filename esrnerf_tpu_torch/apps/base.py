@@ -154,12 +154,14 @@ class AppClass:
         return {k: self.to_device(v) for k, v in batch.items()}
 
     def scaled_budgets(self, scale: int):
-        """Context: the march's compaction budgets multiplied by ``scale``
-        on the live renderer."""
+        """Context: the marches' compaction budgets (primary, and the
+        secondary march's where the renderer has one) multiplied by
+        ``scale`` on the live renderer."""
 
         @contextlib.contextmanager
         def cm():
-            names = ("points_per_ray", "points_per_ray_masked")
+            names = ("points_per_ray", "points_per_ray_masked",
+                     "points_per_2ndray", "points_per_2ndray_masked")
             objs = [self.renderer, getattr(self.renderer, "geo", None)]
             saved = []
             for o in objs:
@@ -229,8 +231,9 @@ class AppClass:
         each budget moves toward ``budget_autotune_target`` utilisation
         (default 0.65), K1-type budgets in whole phase-1 blocks; growth is
         bounded by 1/target and a shrink keeps at least two blocks. Keys
-        ``k1`` and ``k2``. Returns True if a budget changed; the next march
-        call uses it."""
+        ``k1`` and ``k2`` (primary march), and ``k1_2nd`` and ``k2_2nd``
+        (the ESRNeRF secondary march). Returns True if a budget changed;
+        the next march call uses it."""
         m = self.cfg.app["model"]
         if not m.get("budget_autotune", False) or getattr(
                 self, "_budgets_tuned", False):
@@ -251,6 +254,11 @@ class AppClass:
             ("k1", geo, "points_per_ray_masked", blk, 2 * blk),
             ("k2", geo, "points_per_ray", 4, 4),
         ]
+        if hasattr(model, "points_per_2ndray"):
+            plan += [
+                ("k1_2nd", model, "points_per_2ndray_masked", blk, 2 * blk),
+                ("k2_2nd", model, "points_per_2ndray", 4, 4),
+            ]
         changed = []
         for key, obj, attr, mult, lo in plan:
             if key not in fracs:

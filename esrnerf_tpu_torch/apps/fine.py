@@ -372,10 +372,39 @@ class Fine(AppClass):
 
     # ----------------------------------------------------------------- eval
 
+    def _eval_fwd(self) -> Callable:
+        """The renderer's eval forward of one chunk of rays (the LTS stage
+        passes its options)."""
+        return self.renderer.forward_evaluate
+
+    def _eval_chunk(self, ro, rd, vd, em, pos_rt, s_val):
+        """One eval chunk through :meth:`eval_chunk_retry`; a
+        ``pbr_points`` output is popped and decomposed into images by
+        :meth:`_decompose_pbr`."""
+        out = self.eval_chunk_retry(self._eval_fwd(), self.params, ro, rd,
+                                    vd, em, pos_rt, s_val)
+        pbr_pts = out.pop("pbr_points", None)
+        if pbr_pts is not None:
+            out.update(self._decompose_pbr(pbr_pts, ro.shape[0], s_val))
+        return out
+
+    def _decompose_pbr(self, pbr_pts, n_rays: int, s_val):
+        """Hook: the chunked LTS decomposition (LTS and PDRA stages)."""
+        raise NotImplementedError
+
+    def _scene_extra_images(self, dirs) -> None:
+        """Hook: extra scene-level images (the LTS stage's envmap)."""
+
+    def _pre_composite_hook(self, imgs, data, metrics):
+        """Hook: per-image processing before the background composite
+        (the PDRA stage's emission masks)."""
+        return imgs
+
     def evaluate(self, N_vis: int = -1) -> None:
         """Renders (``forward_evaluate`` runs under ``torch.no_grad``),
         metrics and a mesh of the test images (all, or about ``N_vis`` of
-        them)."""
+        them), through the hooks :meth:`_decompose_pbr`,
+        :meth:`_pre_composite_hook` and :meth:`_scene_extra_images`."""
         t0 = time.perf_counter()
         dirs = self.eval_dirs()
         img_idxes = self.eval_img_idxes(len(self.test_dataset), N_vis)
@@ -397,9 +426,9 @@ class Fine(AppClass):
                                      device=self.device)
             imgs = self.render_image(
                 data, ("rays_o", "rays_d", "viewdirs"),
-                lambda ro, rd, vd: self.eval_chunk_retry(
-                    self.renderer.forward_evaluate, self.params, ro, rd, vd,
-                    em, pos_rt, s_val))
+                lambda ro, rd, vd: self._eval_chunk(ro, rd, vd, em, pos_rt,
+                                                    s_val))
+            imgs = self._pre_composite_hook(imgs, data, metrics)
             wbg = imgs["etc/white_bg"] * self.white_bg
             final = {}
             for k, v in imgs.items():
@@ -448,6 +477,8 @@ class Fine(AppClass):
                 renders.setdefault(k, []).append(
                     (np.clip(v, 0, 1) * 255).astype(np.uint8))
         t_img = time.perf_counter()
+        self._scene_extra_images(dirs)
+        t_extra = time.perf_counter()
 
         verts, tris = self.renderer.extract_geometry(
             self.params,
@@ -466,7 +497,7 @@ class Fine(AppClass):
             {k: v for k, v in compact.items() if len(v) == len(img_idxes)})
         self.timings.update({
             "eval_s_per_image": (t_img - t0) / max(1, len(img_idxes)),
-            "mesh_s": t_mesh - t_img,
+            "mesh_s": t_mesh - t_extra,
             "mesh_verts": len(verts),
         })
         self.log_eval(self.test_dataset.phase + "/", {

@@ -1,0 +1,496 @@
+"""ESRNeRF: the inverse-rendering model of the LTS and PDRA stages.
+
+Port of ``esrnerf_tpu/models/esrnerf.py``. Adds to :class:`VoxurfF` a BRDF
+feature grid and BRDFNet (basecolor, roughness, metallic by a sigmoid
+split), EmissionNet (softplus emission), a spherical-Gaussian envmap, and
+the light transport segment: surface points spawn ``num_2ndrays``
+hemisphere rays whose incoming radiance is volume-rendered by a second
+march and composed with the Disney BRDF into the targets ``off_hat`` and
+``emo_hat``.
+
+The secondary fan-out (points x directions) is one batched march with its
+own budgets, the same ``[N, S] -> K1 -> K2`` pipeline as the primary march.
+The reference's random choice of up to ``num_ltspts`` surface points is a
+fixed-size selection with a validity mask. Randomness comes in as explicit
+tensors (:class:`LTSDraws`, :func:`training_draws`), so a test can feed
+the JAX package's draws.
+
+Not ported yet (the PDRA stage's): ``eval_emit``, ``eval_esp``,
+``forward_finetune`` and the HSV helpers.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from esrnerf_tpu_torch.models import mlp as mlpops
+from esrnerf_tpu_torch.models.voxurf_base import _linspace
+from esrnerf_tpu_torch.models.voxurff import NORMAL_FLIPPER, VoxurfF
+from esrnerf_tpu_torch.ops import grid as gridops
+from esrnerf_tpu_torch.ops import pbr as pbrops
+from esrnerf_tpu_torch.utils.device import small_const
+
+Params = Dict[str, object]
+
+
+class LTSDraws(NamedTuple):
+    """The random draws of one training forward, in the JAX package's
+    order (``jax.random.split(rng, 4)``)."""
+
+    select: torch.Tensor      # [K2] uniform scores of the point selection
+    scatter: torch.Tensor     # [P, n2 + 1, 3] normals of the scattering
+    normal_eps: torch.Tensor  # [K2, 3] normals of the normal perturbation
+    emit_eps: torch.Tensor    # [K2, 3] normals of the emission perturbation
+
+
+def _unit_normal(g: torch.Tensor) -> torch.Tensor:
+    return g / torch.clamp(torch.linalg.vector_norm(g, dim=-1, keepdim=True),
+                           min=1e-12)
+
+
+class ESRNeRF(VoxurfF):
+    def __init__(self, cfg, near, far, xyz_min, xyz_max, mask_cache, s_val,
+                 num_voxels, mask_meta=None):
+        super().__init__(cfg, near, far, xyz_min, xyz_max, mask_cache, s_val,
+                         num_voxels, mask_meta)
+        m = cfg.app.model
+        self.brdfnet_width = int(m["brdfnet_width"])
+        self.brdfnet_depth = int(m["brdfnet_depth"])
+        self.env_sg = int(m["env_sg"])
+        self.env_activation = str(m["env_activation"])
+        self.ray_sampling = str(m["ray_sampling"]).lower()
+        self.num_2ndrays = int(m["num_2ndrays"])
+        self.num_ltspts = int(m["num_ltspts"])
+        self.lts_near = float(m["lts_near"])
+        # the secondary march's own budgets per secondary ray: K2 of the
+        # heads and K1 of phase 1 (bounce rays keep far fewer samples)
+        self.points_per_2ndray = int(m.get("points_budget_per_2ndray", 24))
+        self.points_per_2ndray_masked = int(
+            m.get("points_budget_masked_per_2ndray",
+                  4 * self.points_per_2ndray))
+
+        D = len(self.grad_feat)
+        self.brdf_dim0 = (
+            (3 + 3 * self.posbase_pe * 2) + self.color_dim + D * 3 + D * 6 + 1
+        )
+        # PDRA: emission-certain points keep their reflection detached
+        self.pdra_mode = False
+
+    # ------------------------------------------------------------------ init
+
+    def init_params(self, generator: torch.Generator) -> Params:
+        """VoxurfF's groups plus a zero BRDF grid, BRDFNet, EmissionNet
+        (final biases zero) and the SG envmap, drawn from ``generator``."""
+        params = super().init_params(generator)
+        X, Y, Z = self.geo.world_size
+        dev = self.device
+        bd = [self.brdf_dim0] + [self.brdfnet_width] * (self.brdfnet_depth - 1)
+        params["brdf"] = torch.zeros((X, Y, Z, self.color_dim), device=dev)
+        params["brdfnet"] = mlpops.init_mlp(generator, bd + [5], dev,
+                                            zero_final_bias=True)
+        params["emitnet"] = mlpops.init_mlp(generator, bd + [3], dev,
+                                            zero_final_bias=True)
+        env = pbrops.init_sg_params(pbrops.init_sg_draws(generator,
+                                                         self.env_sg),
+                                    self.env_activation)
+        params["envmap"] = {k: v.to(dev) for k, v in env.items()}
+        return params
+
+    def training_draws(self, generator: torch.Generator, k2: int) -> LTSDraws:
+        """The draws of :meth:`forward_training` for a primary march of
+        ``k2`` head rows, on ``generator``'s device."""
+        g, gd = generator, generator.device
+        return LTSDraws(
+            torch.rand((k2,), generator=g, device=gd),
+            pbrops.scattering_draws(g, (self.num_ltspts,),
+                                    self.num_2ndrays + 1),
+            torch.randn((k2, 3), generator=g, device=gd),
+            torch.randn((k2, 3), generator=g, device=gd),
+        )
+
+    # --------------------------------------------------------------- helpers
+
+    def scattering(self, draws: Optional[torch.Tensor], normal: torch.Tensor,
+                   number: int) -> torch.Tensor:
+        """``[..., number, 3]`` hemisphere directions around ``normal``:
+        Fibonacci with ``ray_sampling: fib``, else from the normal
+        ``draws``."""
+        if self.ray_sampling in ("fib", "fibo", "fibonacci"):
+            return pbrops.diffuse_scattering_fib(normal, number)
+        return pbrops.diffuse_scattering(draws, normal)
+
+    def envmap_eval(self, params: Params, dirs: torch.Tensor) -> torch.Tensor:
+        env = params["envmap"]
+        return pbrops.sg_envmap(env["mus"], env["lambdas"], env["lobes"], dirs,
+                                activation=pbrops.ACTIVATIONS[
+                                    self.env_activation])
+
+    def render_envmap(self, params: Params, H: int, W: int) -> torch.Tensor:
+        """Equirectangular ``[H, W, 3]`` image of the envmap."""
+        dev = self.device
+        phi, theta = torch.meshgrid(_linspace(0.0, np.pi, H, dev),
+                                    _linspace(np.pi, -np.pi, W, dev),
+                                    indexing="ij")
+        dirs = torch.stack(
+            [torch.cos(theta) * torch.sin(phi),
+             torch.sin(theta) * torch.sin(phi), torch.cos(phi)], dim=-1,
+        ).reshape(-1, 3)
+        return self.envmap_eval(params, dirs).reshape(H, W, 3)
+
+    def sample_sdf_expgrad(self, sdf_grid: torch.Tensor, pts: torch.Tensor):
+        """SDF and its spatial gradient at ``pts`` from the same 8 corners,
+        both differentiable w.r.t. the grid."""
+        return gridops.grid_sample_3d_coordgrad(
+            sdf_grid, pts, self.geo.xyz_min_t, self.geo.xyz_max_t)
+
+    def _brdf_feat(self, params, pts, sdf, n_valid=None, taps=None):
+        feat6, normals = taps or self._sdf_taps(params, pts, n_valid)
+        return torch.cat([self._xyz_emb_full(pts), sdf[:, None], feat6,
+                          normals], -1)
+
+    def _brdf_heads(self, params, pts, brdf_feat, grid_vals=None):
+        """BRDFNet (sigmoid, split 3/1/1) and EmissionNet (softplus).
+        ``grid_vals``: the ``(brdf, emission grid)`` samples of the march
+        points from the fused gather; else the BRDF and emo grids are read
+        at ``pts`` (any order) by the plain sampler."""
+        if grid_vals is not None:
+            brdf_val, emit_val = grid_vals
+        else:
+            brdf_val = self.geo.sample_grid(params["brdf"], pts)
+            emit_val = self.geo.sample_grid(params["emo_color"], pts)
+        bx = torch.cat([brdf_val, brdf_feat], -1)
+        brdf_out = torch.sigmoid(mlpops.apply_mlp(
+            params["brdfnet"], bx, compute_dtype=self.mlp_dtype))
+        basecolor, roughness, metallic = (
+            brdf_out[:, :3], brdf_out[:, 3:4], brdf_out[:, 4:5])
+        ex = torch.cat([emit_val, brdf_feat], -1)
+        emit = F.softplus(mlpops.apply_mlp(
+            params["emitnet"], ex, compute_dtype=self.mlp_dtype))
+        return basecolor, roughness, metallic, emit
+
+    # ------------------------------------------------------- secondary march
+
+    def _secondary_radiance(self, params: Params, rays_o, dirs, s_val):
+        """Incoming radiance along secondary rays: a march from
+        ``lts_near`` with the secondary budgets, the off and emo heads at
+        its points (one fused gather of their color grids) and the per-ray
+        sums. Returns ``({"off", "emo": [Nsec, 3]}, alphainv_last [Nsec],
+        stats)`` with ``stats = (overflow, k1_frac, k2_frac)`` of this
+        march."""
+        heads = ("off", "emo")
+        geo = self.geo
+        Nsec = rays_o.shape[0]
+        with record_function("lts/march_2nd"):
+            m = geo.march(
+                params["sdf"], rays_o, dirs, dirs, s_val, self.fastcolor_thres,
+                self.neus_alpha, style="fine",
+                k_budget=Nsec * self.points_per_2ndray,
+                k1_budget=Nsec * self.points_per_2ndray_masked,
+                near_override=self.lts_near,
+            )
+        rid = torch.clamp(m.ray_id, max=Nsec - 1)
+        feat = self._features(params, m.pts, dirs.index_select(0, rid), m.sdf,
+                              n_valid=m.n_valid)
+        gvs = geo.sample_grids_sorted(
+            tuple(params[f"{h}_color"] for h in heads), m.pts, m.n_valid)
+        out = {}
+        for h, gv in zip(heads, gvs):
+            out[h] = geo.segment_to_rays(m, self._radiance(params, h, feat,
+                                                           gv))
+        stats = torch.stack([m.overflow, m.k1_frac, m.k2_frac])
+        return out, m.alphainv_last, stats
+
+    def light_transport_segment(
+        self, params: Params, scatter_draws, pts, viewdirs, normal, sdf,
+        basecolor, roughness, metallic, emission, uncert, valid, s_val,
+    ) -> Dict[str, torch.Tensor]:
+        """Training-time LTS on the P selected surface points (``valid``
+        masks slots with no real sample). Returns off/emo and their
+        reconstructions, each ``[2P, 3]``: the actual view direction's
+        block, then the random view direction's."""
+        geo = self.geo
+        n_valid_sel = valid.sum()
+        P = pts.shape[0]
+        n2 = self.num_2ndrays
+
+        dirs_all = self.scattering(scatter_draws, normal, n2 + 1)
+        viewdirs_rand = -dirs_all[:, -1]
+        dirs = dirs_all[:, :-1]  # [P, n2, 3]
+
+        # surface radiance for both outgoing directions (targets off/emo)
+        feat6, normals6 = self._sdf_taps(params, pts, n_valid_sel)
+        vd2 = torch.cat([viewdirs, viewdirs_rand], 0)  # [2P, 3]
+        rgb_feat = torch.cat(
+            [self._xyz_emb_full(pts).repeat(2, 1), self._view_emb(vd2),
+             sdf[:, None].repeat(2, 1), feat6.repeat(2, 1),
+             normals6.repeat(2, 1)], -1)
+        pts2 = pts.repeat(2, 1)
+
+        def head(h):
+            x = torch.cat([geo.sample_grid(params[f"{h}_color"], pts2),
+                           rgb_feat], -1)
+            return F.softplus(mlpops.apply_mlp(
+                params[f"{h}_rgbnet"], x, compute_dtype=self.mlp_dtype))
+
+        off = head("off")  # [2P, 3]
+        emo = head("emo")
+
+        # BRDF response of every (point, direction) for both outgoing dirs
+        def flat(x, d=3):
+            return x[:, None].expand(P, n2, d).reshape(P * n2, d)
+
+        sec_d = dirs.reshape(P * n2, 3)
+        R = pbrops.disney_reflection(
+            flat(basecolor).repeat(2, 1), flat(roughness, 1).repeat(2, 1),
+            flat(metallic, 1).repeat(2, 1), flat(normal).repeat(2, 1),
+            sec_d.repeat(2, 1),
+            torch.cat([-flat(viewdirs), -flat(viewdirs_rand)], 0),
+        )  # [2 P n2, 3]
+
+        # incoming radiance along the secondary rays
+        inc, alphainv_last, sec_stats = self._secondary_radiance(
+            params, flat(pts), sec_d, s_val)
+        env = self.envmap_eval(params, sec_d) * alphainv_last[:, None]
+
+        def mean_dirs(x2):  # [2 P n2, 3] -> [2P, 3]
+            return x2.reshape(2 * P, n2, 3).mean(-2)
+
+        off_hat = mean_dirs((inc["off"] + env).repeat(2, 1) * R)
+        reflect = mean_dirs(inc["emo"].repeat(2, 1) * R)
+
+        emit2 = emission.repeat(2, 1)
+        if self.pdra_mode:
+            um2 = uncert.repeat(2)[:, None]
+            emo_hat = torch.where(um2, emit2 + reflect.detach(), reflect)
+        else:
+            emo_hat = emit2 + reflect
+        return {"off": off, "emo": emo, "off_hat": off_hat,
+                "emo_hat": emo_hat, "valid": valid.repeat(2),
+                "sec_stats": sec_stats}
+
+    @staticmethod
+    def _select_lts_points(scores: torch.Tensor, march, P: int):
+        """The P lowest uniform ``scores`` among the march's non-pad rows
+        (pads score 2; ties to the lower index, as ``top_k``), indices
+        sorted ascending so the selection stays cell-sorted."""
+        scores = torch.where(march.pad, torch.full_like(scores, 2.0), scores)
+        sel = torch.argsort(scores, stable=True)[:P]
+        sel, _ = torch.sort(sel)
+        return sel, ~march.pad.index_select(0, sel)
+
+    # -------------------------------------------------------------- training
+
+    def forward_training(
+        self, params: Params, rays_o, rays_d, viewdirs, em_modes, uncert_masks,
+        s_val, normal_eps, emit_eps, draws: Optional[LTSDraws] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The LTS training forward. ``draws`` (or, if None, draws from
+        ``generator``) supplies the randomness; the phases run inside the
+        ``lts/{march,features,heads,brdf,lts,march_2nd}`` ranges."""
+        geo = self.geo
+        with record_function("lts/march"):
+            m = geo.march(
+                params["sdf"], rays_o, rays_d, viewdirs, s_val,
+                self.fastcolor_thres, self.neus_alpha, style="fine",
+            )
+        if draws is None:
+            draws = self.training_draws(generator, m.pts.shape[0])
+        rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
+        with record_function("lts/features"):
+            _, exp_grad = self.sample_sdf_expgrad(params["sdf"], m.pts)
+            taps = self._sdf_taps(params, m.pts, m.n_valid)
+            feat = self._features(params, m.pts, viewdirs.index_select(0, rid),
+                                  m.sdf, taps=taps)
+        on_mask = ((em_modes.index_select(0, rid) == 1) & ~m.pad)[:, None]
+
+        with record_function("lts/heads"):
+            # the four color-grid reads at the march points in one gather
+            off_gv, emo_gv, brdf_gv = geo.sample_grids_sorted(
+                (params["off_color"], params["emo_color"], params["brdf"]),
+                m.pts, m.n_valid)
+            off = self._radiance(params, "off", feat, off_gv)
+            emo = self._radiance(params, "emo", feat, emo_gv)
+            # on rays: emo + off, off not detached (unlike VoxurfF)
+            lin_rgb = torch.where(on_mask, emo + off, off)
+            rgb = self.apply_tonemapper(params, lin_rgb)
+            rgb_m = geo.segment_to_rays(m, rgb)
+            lin_m = geo.segment_to_rays(m, lin_rgb)
+
+        with record_function("lts/brdf"):
+            brdf_feat = self._brdf_feat(params, m.pts, m.sdf, taps=taps)
+            basecolor, roughness, metallic, emit = self._brdf_heads(
+                params, m.pts, brdf_feat, grid_vals=(brdf_gv, emo_gv))
+            emit_m = geo.segment_to_rays(m, emit)
+        normal = _unit_normal(exp_grad).detach()
+
+        with record_function("lts/lts"):
+            sel, lts_valid = self._select_lts_points(draws.select, m,
+                                                     self.num_ltspts)
+            rs = rid.index_select(0, sel)
+            take = lambda x: x.index_select(0, sel)
+            lts = self.light_transport_segment(
+                params, draws.scatter, take(m.pts),
+                viewdirs.index_select(0, rs), take(normal), take(m.sdf),
+                take(basecolor), take(roughness), take(metallic), take(emit),
+                uncert_masks.index_select(0, rs), lts_valid, s_val,
+            )
+
+        with record_function("lts/brdf"):
+            # eps-perturbed re-evaluations for the smoothness terms
+            _, exp_grad_eps = self.sample_sdf_expgrad(
+                params["sdf"], m.pts + draws.normal_eps * normal_eps)
+            pts_e = m.pts + draws.emit_eps * emit_eps
+            sdf_e = geo.sample_grid(params["sdf"], pts_e)[..., 0]
+            brdf_feat_e = self._brdf_feat(params, pts_e, sdf_e,
+                                          n_valid=m.n_valid)
+            basecolor_e, rough_e, metal_e, emit_e = self._brdf_heads(
+                params, pts_e, brdf_feat_e)
+
+        sec = lts["sec_stats"]
+        return {
+            "etc/alphainv_cum": m.alphainv_last,
+            "etc/white_bg": m.alphainv_last[..., None],
+            "srgb/rgb": rgb_m,
+            "lin/rgb": lin_m,
+            "lin/pbr/off": lts["off"],
+            "lin/pbr/off_hat": lts["off_hat"],
+            "lin/pbr/emo": lts["emo"],
+            "lin/pbr/emo_hat": lts["emo_hat"],
+            "lin/pbr/valid": lts["valid"],
+            "etc/emit_marched": emit_m,
+            "etc/normal": exp_grad,
+            "etc/normal_eps": exp_grad_eps,
+            "etc/emit": emit,
+            "etc/emit_eps": emit_e,
+            "etc/brdf": torch.cat([basecolor, roughness, metallic], -1),
+            "etc/brdf_eps": torch.cat([basecolor_e, rough_e, metal_e], -1),
+            "etc/point_valid": ~m.pad,
+            # the secondary march's overflow trips the same alarm as the
+            # primary's; its utilisations stay separate
+            "etc/overflow": torch.maximum(m.overflow, sec[0]),
+            "etc/k1_frac": m.k1_frac,
+            "etc/k2_frac": m.k2_frac,
+            "etc/k1_frac_2nd": sec[1],
+            "etc/k2_frac_2nd": sec[2],
+        }
+
+    # ------------------------------------------------------------ evaluation
+
+    @torch.no_grad()
+    def forward_evaluate(self, params: Params, rays_o, rays_d, viewdirs,
+                         em_mode: int, pos_rt, s_val, render_pbr: bool = False,
+                         emit_grid_key: str = "emo_color"
+                         ) -> Dict[str, torch.Tensor]:
+        """Eval render of one chunk of rays: VoxurfF's images plus the
+        emission, basecolor, roughness and metallic maps. With
+        ``render_pbr`` the per-point buffers of the LTS decomposition come
+        back under ``pbr_points``."""
+        geo = self.geo
+        m = geo.march(params["sdf"], rays_o, rays_d, viewdirs, s_val,
+                      self.fastcolor_thres, self.neus_alpha, style="fine")
+        rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
+        vd_pt = viewdirs.index_select(0, rid)
+        taps = self._sdf_taps(params, m.pts, m.n_valid)
+        feat = self._features(params, m.pts, vd_pt, m.sdf, taps=taps)
+
+        fuse_keys = ["off_color", "emo_color", "brdf"]
+        if emit_grid_key != "emo_color":
+            fuse_keys.append(emit_grid_key)
+        gvs = geo.sample_grids_sorted(tuple(params[k] for k in fuse_keys),
+                                      m.pts, m.n_valid)
+        off_gv, emo_gv, brdf_gv = gvs[:3]
+        emit_gv = gvs[3] if emit_grid_key != "emo_color" else emo_gv
+        lin_off = self._radiance(params, "off", feat, off_gv)
+        lin_emo = self._radiance(params, "emo", feat, emo_gv)
+        lin_on = lin_off + lin_emo
+        off = self.apply_tonemapper(params, lin_off)
+        emo = self.apply_tonemapper(params, lin_emo)
+        on = self.apply_tonemapper(params, lin_on)
+
+        brdf_feat = self._brdf_feat(params, m.pts, m.sdf, taps=taps)
+        basecolor, roughness, metallic, emit = self._brdf_heads(
+            params, m.pts, brdf_feat, grid_vals=(brdf_gv, emit_gv))
+
+        _, grad_xyz = geo.sample_sdf_grad(params["sdf"], m.pts)
+        flip = small_const(NORMAL_FLIPPER, torch.float32, grad_xyz.device)
+        nrm_vis = ((_unit_normal(grad_xyz) @ pos_rt) * flip + 1.0) / 2.0
+
+        out = {}
+        for key, v in [
+            ("srgb/off_rgb", off), ("lin/off_rgb", lin_off),
+            ("srgb/on_rgb", on), ("lin/on_rgb", lin_on),
+            ("srgb/emo_rgb", emo), ("lin/emo_rgb", lin_emo),
+            ("lin/emit", emit), ("lin/basecolor", basecolor),
+            ("etc/normal", nrm_vis),
+        ]:
+            out[key] = geo.segment_to_rays(m, v)
+        out["lin/roughness"] = geo.segment_to_rays(m, roughness[:, 0])
+        out["lin/metallic"] = geo.segment_to_rays(m, metallic[:, 0])
+
+        depth = geo.segment_to_rays(m, m.step_id.to(torch.float32)
+                                    * geo.stepdist)
+        disp = 1.0 / (depth + m.alphainv_last * geo.far)
+        is_off = int(em_mode) == 0
+        out.update({
+            "etc/depth": depth,
+            "etc/disp": disp,
+            "etc/white_bg": m.alphainv_last[..., None],
+            "srgb/rgb": out["srgb/off_rgb"] if is_off else out["srgb/on_rgb"],
+            "lin/rgb": out["lin/off_rgb"] if is_off else out["lin/on_rgb"],
+        })
+        if render_pbr:
+            # per-point buffers of the chunked decomposition; the app loops
+            # lts_eval_chunk over them and sums per ray
+            _, exp_grad = self.sample_sdf_expgrad(params["sdf"], m.pts)
+            out["pbr_points"] = {
+                "pts": m.pts, "viewdirs": vd_pt,
+                "normal": _unit_normal(exp_grad),
+                "basecolor": basecolor, "roughness": roughness,
+                "metallic": metallic, "emit": emit, "ray_id": m.ray_id,
+                "weights": m.weights, "pad": m.pad,
+            }
+        out["etc/overflow"] = m.overflow
+        return out
+
+    @torch.no_grad()
+    def lts_eval_chunk(self, params: Params, draws, pts, viewdirs_pt, normal,
+                       basecolor, roughness, metallic, s_val
+                       ) -> Dict[str, torch.Tensor]:
+        """Per-point environment and emission decomposition of one chunk of
+        march points; ``draws [K, n2, 3]`` are the scattering's normals
+        (unused with Fibonacci sampling). The caller weights and sums the
+        per-point values per ray. ``etc/overflow`` is the secondary
+        march's."""
+        K = pts.shape[0]
+        n2 = self.num_2ndrays
+        dirs = self.scattering(draws, normal, n2).reshape(K * n2, 3)
+
+        def flat(x, d=3):
+            return x[:, None].expand(K, n2, d).reshape(K * n2, d)
+
+        R = pbrops.disney_reflection(
+            flat(basecolor), flat(roughness, 1), flat(metallic, 1),
+            flat(normal), dirs, -flat(viewdirs_pt))
+        inc, alphainv_last, sec_stats = self._secondary_radiance(
+            params, flat(pts), dirs, s_val)
+        env = self.envmap_eval(params, dirs) * alphainv_last[:, None]
+
+        def mean_dirs(x):
+            return x.reshape(K, n2, 3).mean(-2)
+
+        env_dir = mean_dirs(env * R)
+        env_indir = mean_dirs(inc["off"] * R)
+        return {
+            "lin/env_dir": env_dir,
+            "lin/env_indir": env_indir,
+            "lin/env_effects": env_dir + env_indir,
+            "lin/emit_(in)dir": mean_dirs(inc["emo"] * R),
+            "etc/overflow": sec_stats[0],
+        }
+

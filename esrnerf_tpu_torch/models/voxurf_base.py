@@ -13,12 +13,13 @@ reference) is :func:`fixed_size_nonzero`, a cumsum + scatter that keeps the
 ray-major order, the same ``n1``/``n2`` counts and the same overflow, and
 never syncs the host.
 
-Also here: the training-ray filter in both styles
+Also here: the SDF surface-band cull of the LTS and PDRA stages
+(:meth:`VoxurfGeometry.band_occ64`, :meth:`VoxurfGeometry.query_nearest64`;
+``surf_band_factor > 0``), the march's per-call budgets and near plane (the
+LTS secondary march), the training-ray filter in both styles
 (:meth:`VoxurfGeometry.filter_rays_in_maskcache`), the SDF value and
 gradient sampler of the eval normals, and the mesh extraction. Not ported
-yet: the SDF surface-band cull (``band_occ64``,
-``query_nearest64``; the fine and coarse stages set
-``surf_band_factor: 0``) and ``march_ray_slots``.
+yet: ``march_ray_slots`` (the PDRA fine-tune's).
 """
 
 from __future__ import annotations
@@ -275,11 +276,13 @@ class VoxurfGeometry:
         ne = self.nonempty_mask()[..., None]
         return torch.where(ne, sdf, torch.ones_like(sdf))
 
-    def sample_dense(self, rays_o, rays_d) -> rayops.RaySamples:
-        """Dense sampling with far = 1e9 (rays march the whole bbox)."""
+    def sample_dense(self, rays_o, rays_d, near=None) -> rayops.RaySamples:
+        """Dense sampling with far = 1e9 (rays march the whole bbox) from
+        ``near`` (default: the scene's)."""
         return rayops.sample_rays_dense(
-            rays_o, rays_d, self.xyz_min_t, self.xyz_max_t, self.near, 1e9,
-            self.stepdist, self.n_samples,
+            rays_o, rays_d, self.xyz_min_t, self.xyz_max_t,
+            self.near if near is None else near, 1e9, self.stepdist,
+            self.n_samples,
         )
 
     def sdf_gradient(self, sdf_grid: torch.Tensor) -> torch.Tensor:
@@ -312,6 +315,59 @@ class VoxurfGeometry:
             self.xyz_max_t, n_valid,
         )
 
+    @torch.no_grad()
+    def band_occ64(self, sdf_grid: torch.Tensor, s_val) -> torch.Tensor:
+        """``[66,66,66]`` f32 0/1: the mask cache's 64^3 occupancy AND the
+        SDF surface band ``|sdf| <= surf_band_factor / s_val``, on a
+        1-padded 64^3 world partition, for one nearest tap per sample.
+
+        Conservative: trilinear values inside a cell lie between its corner
+        values, so a block passes iff the range of the corners it covers
+        meets ``[-band, band]``. The corners are resampled onto a per-axis
+        lattice of the multiple of 64 at or above the axis length (every
+        corner index hit), min/max-pooled over overlapping windows (width
+        p + 1, stride p, edge-padded: adjacent blocks share a corner plane)
+        to 64^3, and dilated by one block for nearest-rounding slop. A
+        selection mask: no gradient flows through it."""
+        a = sdf_grid[..., 0].detach()
+        X, Y, Z = a.shape
+        dev = a.device
+
+        def lat(n):
+            LAT = 64 * (-(-n // 64))
+            ll = (torch.arange(LAT, dtype=torch.float32, device=dev) + 0.5) \
+                / LAT * (n - 1)
+            return torch.clamp(torch.round(ll).to(torch.int64), 0, n - 1), \
+                LAT // 64
+
+        (ix, px), (iy, py), (iz, pz) = lat(X), lat(Y), lat(Z)
+        a_lat = a[ix][:, iy][:, :, iz]
+
+        def pool_max(v):
+            v = torch.cat([v, v[-1:]], 0)
+            v = torch.cat([v, v[:, -1:]], 1)
+            v = torch.cat([v, v[:, :, -1:]], 2)
+            for axis, p in ((0, px), (1, py), (2, pz)):
+                v = v.unfold(axis, p + 1, p).amax(-1)
+            return v
+
+        mn = -pool_max(-a_lat)
+        mx = pool_max(a_lat)
+        band = float(np.float32(self.surf_band_factor) / np.float32(s_val))
+        ok = ((mn <= band) & (mx >= -band)).to(torch.float32)
+        ok = gridops.max_pool_3d_same(ok[..., None], 3)[..., 0]
+        return F.pad(ok, (1, 1, 1, 1, 1, 1)) * self.mask_cache.occ64
+
+    def query_nearest64(self, occ: torch.Tensor, xyz: torch.Tensor):
+        """Box tap on a ``[66,66,66]`` 1-padded 64^3 world-partition mask
+        (:meth:`band_occ64`): block ``floor(frac * 64)``, +1 pad offset."""
+        frac = (xyz.reshape(-1, 3) - self.xyz_min_t) \
+            / (self.xyz_max_t - self.xyz_min_t)
+        i = torch.clamp(torch.floor(frac * 64).to(torch.int64) + 1, 0, 65)
+        lin = (i[:, 0] * 66 + i[:, 1]) * 66 + i[:, 2]
+        occ_v = occ.reshape(-1).index_select(0, lin) > 0.0
+        return occ_v.reshape(xyz.shape[:-1])
+
     # ------------------------------------------------------------ the march
 
     def march(
@@ -324,40 +380,48 @@ class VoxurfGeometry:
         fastcolor_thres: float,
         neus_alpha: str = "interp",
         style: str = "coarse",
+        k_budget: int | None = None,
+        k1_budget: int | None = None,
+        near_override: float | None = None,
     ) -> March:
         """Two-phase NeuS march: early compaction, then the scans.
 
         style="coarse": maskcache skip, NeuS alpha, scan, ``weights >
         fastcolor_thres`` filter, re-scan on the survivors. style="fine": an
         ``alpha > fastcolor_thres`` pre-filter before the scan, then a
-        ``weights > fastcolor_thres`` filter without re-scan.
+        ``weights > fastcolor_thres`` filter without re-scan. With
+        ``surf_band_factor > 0`` phase 1 taps the surface-band mask of
+        :meth:`band_occ64` instead of the mask cache's superset.
+        ``k_budget`` / ``k1_budget`` replace the per-ray head and phase-1
+        budgets (K2, K1) and ``near_override`` the scene's near plane (the
+        LTS secondary march).
         """
         if neus_alpha != "interp":
             raise NotImplementedError(
-                "march: only neus_alpha='interp' is ported (the fine stage's)")
-        if self.surf_band_factor > 0:
-            raise NotImplementedError(
-                "march: the surface-band cull (surf_band_factor > 0) is not "
-                "ported yet")
+                "march: only neus_alpha='interp' is ported (every stage's)")
         if style not in ("coarse", "fine"):
             raise ValueError(f"unknown march style '{style}'")
         dev = rays_o.device
         N = rays_o.shape[0]
         S = self.n_samples
-        K2 = N * self.points_per_ray
-        K1 = min(N * self.points_per_ray_masked, N * S)
+        K2 = k_budget or (N * self.points_per_ray)
+        K1 = min(k1_budget or (N * self.points_per_ray_masked), N * S)
+        band = self.surf_band_factor > 0
 
         # block-granular phase 1: blocks of BLK samples are tested once at
         # their centre against the block-dilated mask, surviving blocks are
         # compacted whole, and the exact per-sample test runs on the K1
         # list -- the survivor set equals the per-sample path's
-        BLK = self.phase1_block if self._mask_sup_blk is not None else 1
+        BLK = self.phase1_block if (band or self._mask_sup_blk is not None) \
+            else 1
         SB = -(-S // BLK)
         Sp = SB * BLK  # dense-bridge row stride
         K1 = min(-(-K1 // BLK) * BLK, N * Sp)
 
         mn, mx = self.xyz_min_t, self.xyz_max_t
-        t_min, t_max = rayops.ray_aabb(rays_o, rays_d, mn, mx, self.near, 1e9)
+        near_v = self.near if near_override is None else near_override
+        occ = self.band_occ64(sdf_grid_smooth, s_val) if band else None
+        t_min, t_max = rayops.ray_aabb(rays_o, rays_d, mn, mx, near_v, 1e9)
         rnorm = rayops.ray_norm(rays_d)
         n_steps = torch.clamp(
             torch.ceil((t_max - t_min) * rnorm / self.stepdist), min=1.0)
@@ -370,7 +434,20 @@ class VoxurfGeometry:
             cpts = (start[:, None, :]
                     + dirn[:, None, :] * (self.stepdist * sbc)[None, :, None])
             blk_in = (sbc[None, :] - (BLK - 1) / 2) < n_steps[:, None]
-            sup_blk = blk_in & self._query_nearest_blk(cpts)  # [N, SB]
+            if band:
+                # block-conservative dilation of the band mask: a block
+                # sample lies within halfspan of its centre, so its 64^3
+                # cell differs from the centre's by at most
+                # floor(halfspan / cell) + 1 per axis
+                halfspan = (BLK - 1) / 2 * self.stepdist
+                cell64 = float((self.xyz_max - self.xyz_min).min()) / 64.0
+                r = int(np.floor(halfspan / cell64)) + 1
+                occ_blk = gridops.max_pool_3d_same(occ[..., None],
+                                                   2 * r + 1)[..., 0]
+                blk_hit = self.query_nearest64(occ_blk, cpts)
+            else:
+                blk_hit = self._query_nearest_blk(cpts)
+            sup_blk = blk_in & blk_hit  # [N, SB]
 
             # ---- phase-1 compaction at block granularity (ray-major)
             n1 = sup_blk.sum() * BLK  # blocks enter whole
@@ -385,8 +462,10 @@ class VoxurfGeometry:
                                 step1).reshape(-1)
             pad1 = padb.repeat_interleave(BLK)
         else:
-            rs = self.sample_dense(rays_o, rays_d)
-            sup = rs.valid & self.mask_cache.query_nearest(rs.pts)
+            rs = self.sample_dense(rays_o, rays_d, near=near_override)
+            occ_hit = (self.query_nearest64(occ, rs.pts) if band
+                       else self.mask_cache.query_nearest(rs.pts))
+            sup = rs.valid & occ_hit
 
             # ---- phase-1 compaction (order-preserving => ray-major)
             n1 = sup.sum()
@@ -414,7 +493,8 @@ class VoxurfGeometry:
             # exact per-sample re-test on the compacted list
             in_cnt = step1.to(rays_o.dtype) < rp[:, 6]
             in_bb = ((pts1 >= mn) & (pts1 <= mx)).all(-1)
-            occ_ok = self.mask_cache.query_nearest(pts1)
+            occ_ok = (self.query_nearest64(occ, pts1) if band
+                      else self.mask_cache.query_nearest(pts1))
             samp_ok = ~pad1 & in_cnt & in_bb & occ_ok
         else:
             samp_ok = ~pad1

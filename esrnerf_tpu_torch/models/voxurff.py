@@ -136,22 +136,37 @@ class VoxurfF:
 
     # -------------------------------------------------------------- features
 
-    def _features(self, params, pts, viewdirs_per_pt, sdf, n_valid=None):
-        geo = self.geo
-        feat6, _, normals = geo.sample_sdfeat_grad_normal(
+    def _sdf_taps(self, params, pts, n_valid=None):
+        """The multi-scale SDF taps and normals of the features:
+        ``(feat6 [M, 6D], normals [M, 3D])``."""
+        feat6, _, normals = self.geo.sample_sdfeat_grad_normal(
             params["sdf"], pts, self.grad_feat, n_valid
         )
+        return feat6, normals
+
+    def _xyz_emb_full(self, pts):
+        """Normalised position and its sin/cos encodings."""
+        geo = self.geo
         xyz_n = (pts - geo.xyz_min_t) / (geo.xyz_max_t - geo.xyz_min_t)
         xyz_emb = (xyz_n[..., None] * self._posfreq).reshape(
             *xyz_n.shape[:-1], -1)
-        view_emb = (viewdirs_per_pt[..., None] * self._viewfreq).reshape(
-            *viewdirs_per_pt.shape[:-1], -1)
+        return torch.cat([xyz_n, torch.sin(xyz_emb), torch.cos(xyz_emb)], -1)
+
+    def _view_emb(self, viewdirs):
+        """View direction's encoding and its sin/cos."""
+        view_emb = (viewdirs[..., None] * self._viewfreq).reshape(
+            *viewdirs.shape[:-1], -1)
+        return torch.cat([view_emb, torch.sin(view_emb), torch.cos(view_emb)],
+                         -1)
+
+    def _features(self, params, pts, viewdirs_per_pt, sdf, n_valid=None,
+                  taps=None):
+        """Head features; ``taps`` passes :meth:`_sdf_taps` of the same
+        points when the caller already has them."""
+        feat6, normals = taps or self._sdf_taps(params, pts, n_valid)
         return torch.cat(
-            [
-                xyz_n, torch.sin(xyz_emb), torch.cos(xyz_emb),
-                view_emb, torch.sin(view_emb), torch.cos(view_emb),
-                sdf[:, None], feat6, normals,
-            ],
+            [self._xyz_emb_full(pts), self._view_emb(viewdirs_per_pt),
+             sdf[:, None], feat6, normals],
             dim=-1,
         )
 

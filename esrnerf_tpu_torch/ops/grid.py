@@ -1,13 +1,16 @@
 """Dense voxel-grid sampling, pooling and smoothing on ``[X, Y, Z, C]``
 grids.
 
-Port of the parts of ``esrnerf_tpu/ops/grid.py`` that the fine stage uses.
+Port of the parts of ``esrnerf_tpu/ops/grid.py`` that the stages up to LTS
+use.
 Sampling is trilinear with ``align_corners=True``: a point at ``xyz_min``
 maps to index 0 and ``xyz_max`` to ``dim - 1``; ``mode='zeros'`` gives
 out-of-range corners zero weight. Forwards are plain PyTorch gathers; the
 grid gradients of :func:`grid_sample_3d` and :func:`displaced_taps` and the
 tap forward go through the splat and gather kernels of
-:mod:`esrnerf_tpu_torch.ops.splat`.
+:mod:`esrnerf_tpu_torch.ops.splat`. :func:`grid_sample_3d_coordgrad` (the
+LTS normals) is plain PyTorch both ways, as its reference is plain
+``jnp.take``.
 """
 
 from __future__ import annotations
@@ -140,6 +143,58 @@ def grid_sample_3d(grid, xyz, xyz_min, xyz_max, mode: str = "zeros"):
             "mode); use grid_sample_3d_impl for a forward-only border sample"
         )
     return _GridSample3d.apply(grid, xyz, xyz_min, xyz_max)
+
+
+def grid_sample_3d_coordgrad(grid, xyz, xyz_min, xyz_max):
+    """Trilinear sample of a ``[X,Y,Z,1]`` grid and the closed-form
+    spatial gradient of the interpolant, from the same 8 corner gathers:
+    ``(val [...], dval_dxyz [..., 3])``. Plain PyTorch gathers with native
+    autograd, so both outputs are differentiable w.r.t. ``grid`` and
+    ``xyz``."""
+    X, Y, Z, C = grid.shape
+    if C != 1:
+        raise ValueError("grid_sample_3d_coordgrad samples a [X,Y,Z,1] grid")
+    pts = xyz.reshape(-1, 3)
+    size = small_const((X, Y, Z), torch.int64, grid.device)
+    idx = normalized_index(pts, xyz_min, xyz_max, (X, Y, Z))
+    i0 = torch.floor(idx).to(torch.int64)
+    frac = idx - i0
+    i1 = i0 + 1
+    v0 = (i0 >= 0) & (i0 < size)
+    v1 = (i1 >= 0) & (i1 < size)
+    zero = torch.zeros_like(size)
+    c0 = torch.clamp(i0, min=zero, max=size - 1)
+    c1 = torch.clamp(i1, min=zero, max=size - 1)
+    flat = grid.reshape(-1)
+    yz = Y * Z
+
+    fx, fy, fz = frac[:, 0], frac[:, 1], frac[:, 2]
+    val = None
+    grad = None
+    for d in range(8):
+        dx, dy, dz = (d >> 2) & 1, (d >> 1) & 1, d & 1
+        ix = c1[:, 0] if dx else c0[:, 0]
+        iy = c1[:, 1] if dy else c0[:, 1]
+        iz = c1[:, 2] if dz else c0[:, 2]
+        ok = ((v1 if dx else v0)[:, 0] & (v1 if dy else v0)[:, 1]
+              & (v1 if dz else v0)[:, 2]).to(grid.dtype)
+        v = flat.index_select(0, ix * yz + iy * Z + iz) * ok
+        wx = fx if dx else 1 - fx
+        wy = fy if dy else 1 - fy
+        wz = fz if dz else 1 - fz
+        sx = 1.0 if dx else -1.0
+        sy = 1.0 if dy else -1.0
+        sz = 1.0 if dz else -1.0
+        t_val = v * wx * wy * wz
+        t_grad = v[:, None] * torch.stack(
+            [sx * wy * wz, wx * sy * wz, wx * wy * sz], -1)
+        val = t_val if val is None else val + t_val
+        grad = t_grad if grad is None else grad + t_grad
+    scale = (small_const((X, Y, Z), grid.dtype, grid.device) - 1.0) \
+        / (xyz_max - xyz_min)
+    grad = grad * scale[None, :]
+    lead = xyz.shape[:-1]
+    return val.reshape(lead), grad.reshape(*lead, 3)
 
 
 # ---------------------------------------------------------------------------

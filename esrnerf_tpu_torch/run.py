@@ -6,11 +6,12 @@
 Mirrors the JAX package's ``run.py``: stage classes resolve by the same
 dotted names (``app.cls``), the resolved config is saved into the log dir
 with a copy of the port's package, and a training run resumes from
-``<log.dir>/checkpoints/last.ckpt``. The first three stages are ported
-(``coarse.AlphaMask``, ``coarse.Coarse``, ``fine.Fine``): with one
-``log.root`` and ``log.name``, coarse finds alphamask's ``last.ckpt`` and
-fine finds coarse's by path, so they chain without ``app.trainer.ckpt``.
-``fine.LTS`` and ``fine.PDRA`` raise ``NotImplementedError``.
+``<log.dir>/checkpoints/last.ckpt``. The first four stages are ported
+(``coarse.AlphaMask``, ``coarse.Coarse``, ``fine.Fine``, ``fine.LTS``):
+with one ``log.root`` and ``log.name``, coarse finds alphamask's
+``last.ckpt``, fine finds coarse's and LTS finds fine's by path, so they
+chain without ``app.trainer.ckpt``. ``fine.PDRA`` raises
+``NotImplementedError``.
 ``system.device=cpu`` runs on the CPU (the plain PyTorch versions of the
 kernels); any other value, including the configs' ``tpu`` or none, means
 the GPU, and the run raises when CUDA is not available.
@@ -29,8 +30,9 @@ STAGE_REGISTRY = {
     "coarse.AlphaMask": "esrnerf_tpu_torch.apps.alphamask.AlphaMask",
     "coarse.Coarse": "esrnerf_tpu_torch.apps.coarse.Coarse",
     "fine.Fine": "esrnerf_tpu_torch.apps.fine.Fine",
+    "fine.LTS": "esrnerf_tpu_torch.apps.lts.LTS",
 }
-NOT_PORTED = ("fine.LTS", "fine.PDRA")
+NOT_PORTED = ("fine.PDRA",)
 
 
 def _snapshot_code(log_dir: str) -> None:

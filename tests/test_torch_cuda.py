@@ -358,3 +358,24 @@ def test_voxel_count_views_on_card_matches_cpu(dev):
           "within 1e-4 of w = 1")
     assert (cc == len(ro)).sum() > 0
     np.testing.assert_array_equal(cd[~band], cc[~band])
+
+
+# ------------------------------------------------------------ the LTS step
+
+
+def test_small_lts_step_on_card_matches_cpu(dev):
+    """One small LTS step (32^3, 64 rays, 16 LTS points x 4 secondary
+    rays) on the card against the same step on the CPU from the same
+    parameters, batch and random draws: the loss terms at rtol 1e-4, both
+    marches' counters equal, every group's gradient within 1e-4 of its
+    max |g| (``chip_smoke.check_small_lts_step``, run from the repo root)."""
+    import chip_smoke
+    from esrnerf_tpu_torch.ops import kernels
+
+    n0 = dict(kernels.launches)
+    res = chip_smoke.check_small_lts_step(dev)
+    assert res["overflow"] == 0.0 and res["k2_frac_2nd"] > 0.0
+    assert res["max_grad_err_rel"] <= 1e-4
+    for k in ("scan_fwd", "scan_bwd", "splat", "gather_weighted",
+              "gather_raw"):
+        assert kernels.launches[k] > n0[k], k

@@ -550,6 +550,6 @@ def test_run_main_end_to_end_on_cpu(run_dir, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trun.main(args)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.main(["-cn", os.path.join(REPO, "cfg/app/lts.yaml"),
+        trun.main(["-cn", os.path.join(REPO, "cfg/app/pdra.yaml"),
                    "app.phase=train", "data.cls=x", "data.root=x",
                    "data.scene=x", "system.device=cpu"])
