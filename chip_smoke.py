@@ -18,9 +18,11 @@ Phases, in order; any failure exits non-zero:
    cp.async route timed beside its TMA route; and the K-3 row again with
    every value zero (the atomics' share of its time);
 4. check: one small fine step, one small alphamask step, one small coarse
-   step and one small LTS step (from the same random draws) on the card
-   against the same steps on the CPU (plain versions): loss terms, march
-   counters (both marches of the LTS step) and every group's gradient;
+   step, one small LTS step, one small PDRA step and one small relighting
+   fine-tune step on each of its two paths (from the same random draws)
+   on the card against the same steps on the CPU (plain versions): loss
+   terms, march counters (both marches of the LTS and PDRA steps; the
+   fine-tune's cached slots) and every group's gradient;
 5. train: the fine-stage train step at full width (cfg/app/fine.yaml: 256^3
    = 16,777,216 voxels, 8,192 rays, 192-wide heads; the benchmark's ball
    scene and budgets) through build_fine_train_step, 3 warm-up and 12
@@ -40,7 +42,19 @@ Phases, in order; any failure exits non-zero:
    K-1..K-4 launched (by the secondary march too), a profile by the lts/*
    ranges, peak memory, one lts_eval_chunk of 256 surface points (65,536
    secondary rays) timed, and the first step's launches (captured, when
-   every cotangent is still alive) replayed as the fine step's;
+   every cotangent is still alive) replayed as the fine step's; then the
+   PDRA train step at full width (cfg/app/pdra.yaml, 256^3, 8,192
+   uncertain + 8,192 certain rays, 100 x 256 secondary rays;
+   scripts/bench_pdra.py's budgets 160 / 96 masked and 16 / 12 head
+   samples) through build_pdra_train_step, 2 warm-up and 10 timed steps
+   with the same asserts, profile and peak memory; the regroup sweep
+   (eval_emit over 32 chunks of 4,096 rays) in rays/s; the relighting
+   fine-tune at full width (march_ray_slots over a 32,768-ray edit pool,
+   timed; then steps of 4,096 + 4,096 rays on 16 cached slots a ray) and
+   one relight render chunk (8,192 rays, the 24-channel fused gather);
+   the first PDRA step's, the first fine-tune step's and the render
+   chunk's launches replayed (the fine-tune's 6-channel and the render's
+   24-channel gathers among them);
 6. gather benchmarks: the two microbenchmark entry points
    (esrnerf_tpu_torch.scripts.bench_gather_grid, K-5, tight and random
    spans; bench_gather_parts, K-6, modes dma, build and full) run in
@@ -60,6 +74,14 @@ Phases, in order; any failure exits non-zero:
    fine checkpoint, found by path: 16 steps (the config's budgets), eval
    with the envmap images and the mesh, checkpoint, a resume to step 18
    and the test_nv eval of the saved checkpoint, with the same asserts;
+   then the PDRA stage from that LTS checkpoint, found by path: 8 steps of
+   8,192 + 8,192 rays (the PDRA step's budgets) with regroups at steps 0,
+   3 and 7, eval with the emission IoU and the mesh, checkpoint, a resume
+   to step 10 and the test_nv eval of the saved checkpoint; then
+   test_nvc, test_nvi and test_nvic on one test view each (50 fine-tune
+   steps, the relit render). Asserts finite metrics, overflow 0, the
+   IoUs, the eval files and the kernels launched; prints each relight
+   phase's first and last fine-tune loss (emo_MSE);
 8. chain: the stages upstream of fine and fine itself through
    esrnerf_tpu_torch.run.main on another synthetic 256x256 scene, each
    finding the previous stage's checkpoint by path: alphamask at full
@@ -78,7 +100,8 @@ Phases, in order; any failure exits non-zero:
    each is captured and replayed as in phase 5.
 
 Prints one JSON line per phase, then the kernel table as one JSON object
-(``launches``: the fine step's; ``launches_lts_step``: the LTS step's),
+(``launches``: the fine step's; ``launches_lts_step``,
+``launches_pdra_step``, ``launches_finetune_step``: those steps'),
 the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -762,6 +785,42 @@ def make_lts_batch(seed, n, device):
     return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
 
 
+# the small card-against-CPU steps: 32^3, 32-wide heads, 16 LTS points x 4
+# secondary rays, budgets with overflow 0 on the ball
+SMALL_ESR = ["app.model.rgbnet_width=32", "app.model.rgbnet_depth=2",
+             "app.model.tonemap_width=32", "app.model.brdfnet_width=32",
+             "app.model.brdfnet_depth=2", "app.model.num_ltspts=16",
+             "app.model.num_2ndrays=4",
+             "app.model.points_budget_masked_per_ray=432",
+             "app.model.points_budget_per_ray=16",
+             "app.model.points_budget_masked_per_2ndray=128",
+             "app.model.points_budget_per_2ndray=16",
+             "system.compute_dtype=float32"]
+
+
+def _small_esr_params(model, seed):
+    """Seeded CPU parameters with a sphere SDF and random colour and BRDF
+    grids (every group gets a gradient)."""
+    import torch
+
+    params = model.init_params(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    X, Y, Z = model.geo.world_size
+    x, y, z = np.mgrid[-1:1:X * 1j, -1:1:Y * 1j, -1:1:Z * 1j]
+    sdf = np.sqrt(x**2 + y**2 + z**2) - 0.5 + rng.normal(scale=0.03,
+                                                        size=x.shape)
+    params["sdf"] = torch.as_tensor(sdf.astype(np.float32)[..., None])
+    for g in ("off_color", "emo_color", "brdf"):
+        params[g] = torch.as_tensor(rng.normal(
+            scale=0.3, size=params[g].shape).astype(np.float32))
+    return params
+
+
+def _to(tree, dev):
+    return ({k: _to(v, dev) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.to(dev))
+
+
 def check_small_lts_step(device, seed=0):
     """One small LTS step on ``device`` against the plain versions on the
     CPU: same parameters, batch and random draws; the loss terms at rtol
@@ -772,36 +831,15 @@ def check_small_lts_step(device, seed=0):
     from esrnerf_tpu_torch.apps.lts import build_lts_train_step
     from esrnerf_tpu_torch.models.esrnerf import LTSDraws
 
-    ov = ["app.model.rgbnet_width=32", "app.model.rgbnet_depth=2",
-          "app.model.tonemap_width=32", "app.model.brdfnet_width=32",
-          "app.model.brdfnet_depth=2", "app.model.num_ltspts=16",
-          "app.model.num_2ndrays=4",
-          "app.model.points_budget_masked_per_ray=432",
-          "app.model.points_budget_per_ray=16",
-          "app.model.points_budget_masked_per_2ndray=128",
-          "app.model.points_budget_per_2ndray=16",
-          "system.compute_dtype=float32"]
     out, params_cpu, draws_cpu = {}, None, None
     for dev in (torch.device("cpu"), device):
-        cfg, model = build_lts(dev, 32**3, ov, mask_res=16)
+        cfg, model = build_lts(dev, 32**3, SMALL_ESR, mask_res=16)
         if params_cpu is None:
-            params_cpu = model.init_params(torch.Generator().manual_seed(seed))
-            rng = np.random.default_rng(seed)
-            X, Y, Z = model.geo.world_size
-            x, y, z = np.mgrid[-1:1:X * 1j, -1:1:Y * 1j, -1:1:Z * 1j]
-            sdf = np.sqrt(x**2 + y**2 + z**2) - 0.5 + rng.normal(
-                scale=0.03, size=x.shape)
-            params_cpu["sdf"] = torch.as_tensor(
-                sdf.astype(np.float32)[..., None])
-            for g in ("off_color", "emo_color", "brdf"):
-                params_cpu[g] = torch.as_tensor(rng.normal(
-                    scale=0.3, size=params_cpu[g].shape).astype(np.float32))
+            params_cpu = _small_esr_params(model, seed)
             draws_cpu = model.training_draws(
                 torch.Generator().manual_seed(seed + 1), 64 * 16)
-        on = lambda t: ({k: on(v) for k, v in t.items()}
-                        if isinstance(t, dict) else t.to(dev))
         step = build_lts_train_step(model, _GradsOut(), cfg, device=dev)
-        grads, _, aux = step(on(params_cpu), None,
+        grads, _, aux = step(_to(params_cpu, dev), None,
                              make_lts_batch(seed, 64, dev), 40.0,
                              {k: 1.0 for k in params_cpu}, 1.0, 0.05, 1e-4,
                              True, draws=LTSDraws(
@@ -945,8 +983,400 @@ def lts_eval_chunk_timed(device, model, params, chunk=256, seed=0):
             "env_dir_mean": float(res["lin/env_dir"].mean())}
 
 
+# ------------------------------------- the PDRA step and relighting (phase 5)
+
+# full-width PDRA step: cfg/app/pdra.yaml with scripts/bench_pdra.py's
+# set-up (phase 1: 160 masked samples per primary ray, 96 per secondary ray;
+# heads: 16 and 12), 8,192 uncertain + 8,192 certain rays, 100 LTS points x
+# 256 secondary rays
+PDRA_BATCH = 8192
+PDRA_OVERRIDES = [
+    "app.phase=train", "data.cls=esrnerf.ESRNeRF", "data.root=unused",
+    "data.scene=unused", f"app.trainer.uncert_batch_size={PDRA_BATCH}",
+    f"app.trainer.cert_batch_size={PDRA_BATCH}",
+    "app.model.points_budget_masked_per_ray=160",
+    "app.model.points_budget_masked_per_2ndray=96",
+    "app.model.phase1_block=8",
+    "app.model.points_budget_per_ray=16",
+    "app.model.points_budget_per_2ndray=12",
+]
+# the relighting fine-tune at full width: cfg/app/pdra.yaml's eval batches
+# (4,096 + 4,096 rays) and cached slots (16 a ray), its eval lrs and weight
+FT_BATCH = 4096
+FT_PPR = 16
+FT_LRS = {"emo_color": 1e-3, "emo_rgbnet": 1e-5}
+# the fine-tune's kernels (its secondary march runs without gradients: no
+# K-2)
+FT_KERNELS = ("scan_fwd", "splat", "gather_weighted", "gather_raw")
+FT_WEIGHT = 0.5
+def build_pdra(device, num_voxels, overrides=(), mask_res=64):
+    """cfg/app/pdra.yaml's ESRNeRF in PDRA mode on ``device`` over the
+    benchmark's ball scene."""
+    from esrnerf_tpu_torch.config import load_cfg
+    from esrnerf_tpu_torch.models.esrnerf import ESRNeRF
+
+    cfg = load_cfg("cfg/app/pdra.yaml", PDRA_OVERRIDES + list(overrides),
+                   root_dir=REPO)
+    model = ESRNeRF(cfg, 0.5, 4.0, [-1, -1, -1], [1, 1, 1],
+                    _ball_mask_cache(device, mask_res), s_val=LTS_S_VAL,
+                    num_voxels=num_voxels)
+    model.pdra_mode = True
+    return cfg, model
+
+
+def make_pdra_batch(seed, batch, device):
+    """scripts/bench_pdra.py's batch: 2 x ``batch`` rays, the first half
+    uncertain, as ``RayGroupManager.sample`` concatenates the pools."""
+    import torch
+
+    b = make_lts_batch(seed, 2 * batch, device)
+    b["uncert_masks"] = torch.arange(2 * batch, device=device) < batch
+    return b
+
+
+def make_ft_batch(seed, n, device):
+    """A fine-tune batch: rays as ``make_lts_batch``'s and every edit
+    (modes 0-4, intensities, hue and saturation)."""
+    import torch
+
+    b = make_lts_batch(seed, n, device)
+    r = np.random.default_rng(seed + 1000)
+    b["em_modes"] = torch.as_tensor(r.integers(0, 5, n), device=device)
+    b["em_intensities"] = torch.as_tensor(
+        r.uniform(0.2, 2.0, n).astype(np.float32), device=device)
+    b["em_colors"] = torch.as_tensor(
+        r.uniform(0, 1, (n, 2)).astype(np.float32), device=device)
+    return b
+
+
+def ft_split(params):
+    """The fine-tune's trainable clones and frozen rest (with the
+    ``emit_color`` clone of ``emo_color``), as ``PDRA.finetune_radiance``
+    makes them."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.pdra import FT_GROUPS
+    from esrnerf_tpu_torch.optim.adam import tree_map
+
+    frozen = {k: v for k, v in params.items() if k not in FT_GROUPS}
+    frozen["emit_color"] = params["emo_color"].clone()
+    return {k: tree_map(torch.clone, params[k]) for k in FT_GROUPS}, frozen
+
+
+def check_small_pdra_step(device, seed=0):
+    """One small PDRA step on ``device`` against the plain versions on the
+    CPU: same parameters, batch (certain and uncertain rays) and draws;
+    the loss terms (off and emo L1s, the emo pair's second half, the
+    suppression, the emission smoothness) at rtol 1e-4, both marches'
+    counters equal, each group's gradient within 1e-4 of its max |g|."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.pdra import build_pdra_train_step
+    from esrnerf_tpu_torch.models.esrnerf import LTSDraws
+
+    out, params_cpu, draws_cpu = {}, None, None
+    for dev in (torch.device("cpu"), device):
+        cfg, model = build_pdra(dev, 32**3, SMALL_ESR, mask_res=16)
+        if params_cpu is None:
+            params_cpu = _small_esr_params(model, seed)
+            draws_cpu = model.training_draws(
+                torch.Generator().manual_seed(seed + 1), 64 * 16)
+        step = build_pdra_train_step(model, _GradsOut(), cfg, device=dev)
+        grads, _, aux = step(_to(params_cpu, dev), None,
+                             make_lts_batch(seed, 64, dev), 40.0,
+                             {k: 1.0 for k in params_cpu}, 1.0, 0.05, 1e-4,
+                             True, draws=LTSDraws(
+                                 *(d.to(dev) for d in draws_cpu)))
+        out[dev.type] = (grads, [float(x) for x in aux])
+    (g_c, aux_c), (g_d, aux_d) = out["cpu"], out[device.type]
+    if aux_c[4:9] != aux_d[4:9]:
+        raise AssertionError(f"PDRA march counters differ: {aux_c} vs "
+                             f"{aux_d}")
+    terms = [0, 1, 2, 3, 9, 10, 11]
+    np.testing.assert_allclose([aux_d[i] for i in terms],
+                               [aux_c[i] for i in terms], rtol=1e-4)
+    return {"mse": aux_d[0], "mse_cpu": aux_c[0], "off_l1": aux_d[2],
+            "emo_l1": aux_d[3], "emo_r1": aux_d[9], "emit_supp": aux_d[10],
+            "emit_smooth": aux_d[11], "overflow": aux_d[4],
+            "k1_frac": aux_d[5], "k2_frac": aux_d[6],
+            "k1_frac_2nd": aux_d[7], "k2_frac_2nd": aux_d[8],
+            "max_grad_err_rel": assert_grads_close(g_c, g_d)}
+
+
+def check_small_finetune(device, seed=0, ppr=8):
+    """One small relighting fine-tune step on ``device`` against the plain
+    versions on the CPU, on both of its paths (the per-step march, and
+    slots from ``march_ray_slots``: the card's slots equal the CPU's, the
+    points at rtol 1e-4 / atol 1e-5): same parameters, batch and draws;
+    the loss at rtol 1e-4, the secondary march's overflow equal, the
+    ``emo_color`` and ``emo_rgbnet`` gradients within 1e-4 of their max."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.pdra import build_finetune_step
+
+    res = {}
+    for cached in (False, True):
+        out, params_cpu, slots_cpu, draws_cpu = {}, None, None, None
+        for dev in (torch.device("cpu"), device):
+            _, model = build_pdra(dev, 32**3, SMALL_ESR, mask_res=16)
+            b = make_ft_batch(seed, 64, dev)
+            if params_cpu is None:
+                params_cpu = _small_esr_params(model, seed)
+            params = _to(params_cpu, dev)
+            ft = {}
+            if cached:
+                p, ok, (cnt, drop) = model.geo.march_ray_slots(
+                    params["sdf"], b["rays_o"], b["rays_d"], b["viewdirs"],
+                    40.0, model.fastcolor_thres, model.neus_alpha, ppr)
+                if slots_cpu is None:
+                    slots_cpu = (p, ok, cnt, drop)
+                else:
+                    for name, x, y in zip(("valid", "counts", "dropped"),
+                                          (ok, cnt, drop), slots_cpu[1:]):
+                        if not torch.equal(x.cpu(), y):
+                            raise AssertionError(f"march_ray_slots {name} "
+                                                 "differs from the CPU's")
+                    assert_close("march_ray_slots pts", p.cpu(),
+                                 slots_cpu[0], 1e-4, 1e-5)
+                ft = {"ft_pts": slots_cpu[0].to(dev),
+                      "ft_valid": slots_cpu[1].to(dev)}
+            if draws_cpu is None:
+                n_rows = 64 * (ppr if cached else model.geo.points_per_ray)
+                draws_cpu = model.finetune_draws(
+                    torch.Generator().manual_seed(seed + 2), n_rows)
+            trainable, frozen = ft_split(params)
+            step = build_finetune_step(model, _GradsOut(), FT_WEIGHT)
+            grads, _, (loss, ovf) = step(
+                trainable, None, frozen, b, 40.0,
+                draws=type(draws_cpu)(*(d.to(dev) for d in draws_cpu)), **ft)
+            out[dev.type] = (grads, float(loss), float(ovf))
+        (g_c, l_c, o_c), (g_d, l_d, o_d) = out["cpu"], out[device.type]
+        if o_c != o_d:
+            raise AssertionError(f"fine-tune overflow {o_d} vs CPU {o_c}")
+        np.testing.assert_allclose(l_d, l_c, rtol=1e-4)
+        res["cached" if cached else "march"] = {
+            "loss": l_d, "loss_cpu": l_c, "overflow": o_d,
+            "max_grad_err_rel": assert_grads_close(g_c, g_d)}
+    return res
+
+
+def regroup_sweep_timed(device, model, params, chunk=4096, n_chunks=32):
+    """The regroup's ``eval_emit`` sweep at its 4,096-ray chunks over
+    ``n_chunks`` chunks of the benchmark's rays (synchronised host clock):
+    rays/s, overflow 0, finite emission, launches per chunk."""
+    import torch
+
+    from esrnerf_tpu_torch.ops import kernels
+
+    chunks = [make_lts_batch(100 + i, chunk, device) for i in range(4)]
+    args = lambda i: [chunks[i % 4][k] for k in ("rays_o", "rays_d",
+                                                  "viewdirs")]
+    model.eval_emit(params, *args(0), LTS_S_VAL)  # warm
+    sync(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = [model.eval_emit(params, *args(i), LTS_S_VAL)
+            for i in range(n_chunks)]
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    ovf = max(float(o) for _, o in outs)
+    emit = torch.stack([e for e, _ in outs])
+    if ovf != 0.0 or not bool(torch.isfinite(emit).all()):
+        raise AssertionError(f"regroup sweep: overflow {ovf}, or non-finite")
+    return {"chunk": chunk, "chunks": n_chunks, "s": dt,
+            "rays_per_s": chunk * n_chunks / dt, "overflow": ovf,
+            "emit_max_mean": float(emit.max(-1).values.mean()),
+            "launches_per_chunk": {k: v / n_chunks
+                                   for k, v in launches.items() if v}}
+
+
+def finetune_full_width(device, model, params, warmup=2, timed=10,
+                        n_pool_chunks=4):
+    """The relighting fine-tune step at full width: ``march_ray_slots``
+    over an edit pool of 2 x ``n_pool_chunks`` x 4,096 rays (timed: rays
+    per s), then fine-tune steps of 4,096 + 4,096 rays on the cached slots
+    (16 a ray) with the eval's Adam, 100 LTS points x 256 secondary rays;
+    the first step's launches captured, then the timed steps' launches
+    and ms. Also one relight render chunk (``forward_evaluate`` with
+    ``emit_grid_key="emit_color"``: the 24-channel fused gather) timed and
+    captured."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.pdra import build_finetune_step
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.optim import Adam
+
+    trainable, frozen = ft_split(params)
+    pool = [make_ft_batch(300 + i, FT_BATCH, device)
+            for i in range(2 * n_pool_chunks)]
+    sync(device)
+    t0 = time.perf_counter()
+    slots = [model.geo.march_ray_slots(
+        frozen["sdf"], b["rays_o"], b["rays_d"], b["viewdirs"], LTS_S_VAL,
+        model.fastcolor_thres, model.neus_alpha, FT_PPR) for b in pool]
+    sync(device)
+    slots_s = time.perf_counter() - t0
+    counts = torch.cat([c for _, _, (c, _) in slots]).double()
+    drops = torch.cat([d for _, _, (_, d) in slots]).double()
+
+    def batch(i):
+        u, c = i % n_pool_chunks, n_pool_chunks + i % n_pool_chunks
+        b = {k: torch.cat([pool[u][k], pool[c][k]]) for k in pool[u]}
+        b["ft_pts"] = torch.cat([slots[u][0], slots[c][0]])
+        b["ft_valid"] = torch.cat([slots[u][1], slots[c][1]])
+        return b
+
+    batches = [batch(i) for i in range(n_pool_chunks)]
+    opt = Adam(FT_LRS)
+    state = opt.init(trainable)
+    step = build_finetune_step(model, opt, FT_WEIGHT)
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def run(i):
+        nonlocal trainable, state
+        b = batches[i % n_pool_chunks]
+        trainable, state, aux = step(trainable, state, frozen, b, LTS_S_VAL,
+                                     generator=gen, ft_pts=b["ft_pts"],
+                                     ft_valid=b["ft_valid"])
+        return aux
+
+    warm = []
+    captured = records_to(capture_launches(lambda: warm.append(run(0)),
+                                           depth=8), "cpu")
+    warm += [run(i) for i in range(1, warmup)]
+    sync(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    auxes = [run(warmup + i) for i in range(timed)]
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    aux = torch.stack([torch.stack(a) for a in warm + auxes]).cpu().numpy()
+    if not np.isfinite(aux).all() or aux[:, 1].max() != 0.0:
+        raise AssertionError(f"fine-tune loss or overflow: {aux}")
+    res = {"batch": 2 * FT_BATCH, "ppr": FT_PPR,
+           "secondary_rays": model.num_ltspts * model.num_2ndrays,
+           "slots_rays": len(pool) * FT_BATCH, "slots_s": slots_s,
+           "slots_rays_per_s": len(pool) * FT_BATCH / slots_s,
+           "slots_dropped_frac": float(drops.sum() / counts.sum()),
+           "step_ms": dt / timed * 1e3, "timed_steps": timed,
+           "loss_first": float(aux[0, 0]), "loss_last": float(aux[-1, 0]),
+           "launches_per_step": {k: v / timed for k, v in launches.items()}}
+    res["profile"] = profile_steps(device, lambda i: run(50 + i))
+
+    # one relight render chunk: the off, emo, BRDF and emit_color grids in
+    # one 24-channel gather
+    full = {**frozen, **trainable}
+    b = make_lts_batch(7, 8192, device)
+    eye = torch.eye(3, device=device)
+    fwd = lambda: model.forward_evaluate(
+        full, b["rays_o"], b["rays_d"], b["viewdirs"], 1, eye, LTS_S_VAL,
+        emit_grid_key="emit_color")
+    rec = records_to(capture_launches(fwd, depth=8), "cpu")
+    out = fwd()
+    if float(out["etc/overflow"]) != 0.0 or not bool(
+            torch.isfinite(out["lin/rgb"]).all()):
+        raise AssertionError("relight render chunk: overflow or non-finite")
+    res["relight_chunk"] = {"rays": 8192,
+                            "ms": time_ms(fwd, device, runs=3, calls=3)}
+    return res, launches, captured, rec
+
+
+def train_pdra_full_width(device, num_voxels, batch, warmup=2, timed=10,
+                          overrides=()):
+    """The PDRA train step at full width (scripts/bench_pdra.py's set-up);
+    returns its metrics (with the regroup sweep and the fine-tune), the
+    launches per kernel over the timed PDRA steps and over the timed
+    fine-tune steps, and the captured launches of the first PDRA step, the
+    first fine-tune step and one relight render chunk."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.pdra import build_pdra_train_step
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.optim import Adam
+
+    t0 = time.perf_counter()
+    cfg, model = build_pdra(device, num_voxels, overrides)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    opt = Adam({k: 1e-2 for k in params})  # bench_pdra.py's learning rates
+    state = opt.init(params)
+    step = build_pdra_train_step(model, opt, cfg, device=device)
+    batches = [make_pdra_batch(i, batch, device) for i in range(4)]
+    gen = torch.Generator(device=device).manual_seed(1)
+    lrs = {k: 1.0 for k in params}
+    sync(device)
+    setup_s = time.perf_counter() - t0
+
+    def run(i):
+        nonlocal params, state
+        params, state, aux = step(params, state, batches[i % 4], LTS_S_VAL,
+                                  lrs, *LTS_TV.values(), generator=gen)
+        return aux
+
+    # the first step is captured (every cotangent alive, as in the LTS
+    # step)
+    t0 = time.perf_counter()
+    warm = []
+    captured = records_to(capture_launches(lambda: warm.append(run(0)),
+                                           depth=8), "cpu")
+    warm += [run(i) for i in range(1, warmup)]
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    auxes = [run(warmup + i) for i in range(timed)]
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+
+    aux = torch.stack([torch.stack(a) for a in warm + auxes]).cpu().numpy()
+    if not np.isfinite(aux).all():
+        raise AssertionError(f"non-finite PDRA loss terms: {aux}")
+    if aux[:, 4].max() != 0.0:
+        raise AssertionError(f"PDRA march overflow {aux[:, 4].max()} > 0 "
+                             "(primary or secondary)")
+    n_sec = model.num_ltspts * model.num_2ndrays
+    res = {
+        "num_voxels": num_voxels, "world_size": list(model.geo.world_size),
+        "n_rays": 2 * batch, "secondary_rays": n_sec, "timed_steps": timed,
+        "step_ms": dt / timed * 1e3, "rays_per_s": 2 * batch * timed / dt,
+        "setup_s": setup_s, "warmup_s": warm_s,
+        "mse_first": float(aux[0, 0]), "mse_last": float(aux[-1, 0]),
+        **{f"{k}_last": float(aux[-1, i]) for i, k in
+           ((2, "off_l1"), (3, "emo_l1"), (9, "emo_r1"), (10, "emit_supp"),
+            (11, "emit_smooth"))},
+        "overflow_max": float(aux[:, 4].max()),
+        **{f"{k}_max": float(aux[:, i].max()) for i, k in
+           ((5, "k1_frac"), (6, "k2_frac"), (7, "k1_frac_2nd"),
+            (8, "k2_frac_2nd"))},
+        "launches_per_step": {k: v / timed for k, v in launches.items()},
+    }
+    if device.type == "cuda":
+        res["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated(device) / 2**30
+    res["profile"] = prof = profile_steps(device, lambda i: run(99 + i))
+    res["idle_share"] = max(0.0, 1 - prof["device_busy_ms_per_step"]
+                            / res["step_ms"])
+    res["secondary_launches"] = _secondary_launches(captured, n_sec)
+    # the sweep and the fine-tune from the seed-0 weights: after the steps
+    # at lr 1e-2 the emo heads saturate, and the fine-tune's emo-grid
+    # cotangents underflow to zeros that no replay could check
+    del state, opt, params
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    res["regroup"] = regroup_sweep_timed(device, model, params)
+    ft, ft_launches, ft_captured, relight_captured = finetune_full_width(
+        device, model, params)
+    res["finetune"] = ft
+    return res, launches, ft_launches, (captured, ft_captured,
+                                        relight_captured)
+
+
 # record_function ranges of the stages' train steps (``<stage>/<phase>``)
-STAGE_RANGES = ("fine/", "alphamask/", "coarse/", "lts/")
+STAGE_RANGES = ("fine/", "alphamask/", "coarse/", "lts/", "pdra/",
+                "relight/")
 
 
 def profile_steps(device, run, n=3):
@@ -1517,6 +1947,25 @@ def train_stage(device, work, wh=256, n_train=12, n_test=3,
     }
 
 
+def counted_run(device, args):
+    """``esrnerf_tpu_torch.run.main(args)`` with the launch counts and the
+    peak memory reset before it: ``(app, launches, seconds, peak GiB)``."""
+    import torch
+
+    from esrnerf_tpu_torch import run
+    from esrnerf_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    app = run.main(args)
+    sync(device)
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else None)
+    return app, dict(kernels.launches), time.perf_counter() - t, peak
+
+
 LTS_TRAIN_KERNELS = ("scan_fwd", "scan_bwd", "splat", "gather_weighted",
                      "gather_raw")
 LTS_EVAL_KERNELS = ("scan_fwd", "gather_weighted", "gather_raw")
@@ -1530,11 +1979,6 @@ def lts_stage(device, work, n_rays=N_RAYS, n_iters=16, resume_iters=18,
     (``N_vis`` 1: renders, the envmap images, the mesh) and checkpoints,
     resumes to ``resume_iters``, then evaluates the saved checkpoint
     (test_nv)."""
-    import torch
-
-    from esrnerf_tpu_torch import run
-    from esrnerf_tpu_torch.ops import kernels
-
     ov = ["-cn", os.path.join(REPO, "cfg/exp/esrnerf/giftbox_w/lts.yaml"),
           f"data.root={work}/data", "data.scene=synth_ball",
           f"log.root={work}/logs", "log.name=smoke", "log.offline=true",
@@ -1542,16 +1986,7 @@ def lts_stage(device, work, n_rays=N_RAYS, n_iters=16, resume_iters=18,
           f"system.device={device.type}", f"app.trainer.batch_size={n_rays}",
           "app.trainer.N_vis=1", *extra]
 
-    def count(args):
-        kernels.reset_launches()
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
-        t = time.perf_counter()
-        app = run.main(args)
-        sync(device)
-        peak = (torch.cuda.max_memory_allocated(device) / 2**30
-                if device.type == "cuda" else None)
-        return app, dict(kernels.launches), time.perf_counter() - t, peak
+    count = lambda args: counted_run(device, args)
 
     train = lambda n: ov + ["app.phase=train", f"app.trainer.n_iters={n}",
                             f"app.trainer.save_every={n}",
@@ -1611,6 +2046,147 @@ def lts_stage(device, work, n_rays=N_RAYS, n_iters=16, resume_iters=18,
            for k in ("k1_frac", "k2_frac", "k1_frac_2nd", "k2_frac_2nd")},
         "test_nv": {k.split("/metric/")[1]: v for k, v in ev.items()
                     if "/metric/" in k},
+        "launches_train": {k: v for k, v in launches.items() if v},
+        "launches_test_nv": {k: v for k, v in ev_launches.items() if v},
+    }
+
+
+PDRA_TRAIN_KERNELS = LTS_TRAIN_KERNELS
+RELIGHT_KERNELS = FT_KERNELS
+RELIGHT_PHASES = ("test_nvc", "test_nvi", "test_nvic")
+
+
+def _keep_first_frame(work, phase):
+    """Cut the scene's ``transforms_<phase>.json`` to its first view."""
+    path = os.path.join(work, "data", "synth_ball", "transforms",
+                        f"transforms_{phase}.json")
+    with open(path) as f:
+        t = json.load(f)
+    t["frames"] = t["frames"][:1]
+    with open(path, "w") as f:
+        json.dump(t, f)
+
+
+def pdra_stage(device, work, batch=PDRA_BATCH, n_iters=8, resume_iters=10,
+               group_interval=4, ft_iters=50, extra=()):
+    """The PDRA stage through ``esrnerf_tpu_torch.run.main`` in ``work``,
+    after ``lts_stage``: it finds that LTS run's checkpoint by path, regroups
+    at step 0 and every ``group_interval`` steps, trains ``n_iters`` steps
+    of ``batch`` + ``batch`` rays, evals test_nv with the emission IoU
+    (``N_vis`` 1) and checkpoints, resumes to ``resume_iters``, evaluates
+    the saved checkpoint (test_nv), then runs the three relighting phases
+    on one test view each (``ft_iters`` fine-tune steps, then the relit
+    render)."""
+    ov = ["-cn", os.path.join(REPO, "cfg/exp/esrnerf/giftbox_w/pdra.yaml"),
+          f"data.root={work}/data", "data.scene=synth_ball",
+          f"log.root={work}/logs", "log.name=smoke", "log.offline=true",
+          "system.debug=true", "system.tqdm_iters=1",
+          f"system.device={device.type}",
+          f"app.trainer.uncert_batch_size={batch}",
+          f"app.trainer.cert_batch_size={batch}",
+          f"app.trainer.group_interval={group_interval}",
+          "app.trainer.N_vis=1", f"app.eval.n_iters={ft_iters}",
+          # scripts/bench_pdra.py's budgets: the configs' 64 head samples a
+          # primary ray use 8% of them on this scene (LTS stage)
+          *PDRA_OVERRIDES[6:], *extra]
+
+    count = lambda args: counted_run(device, args)
+
+    train = lambda n: ov + ["app.phase=train", f"app.trainer.n_iters={n}",
+                            f"app.trainer.save_every={n}",
+                            f"app.trainer.vis_every={n}"]
+    app, launches, train_s, peak = count(train(n_iters))
+    ld = app.cfg.log["dir"]
+    n_first = len(_stage_rows(app))
+    app2, _, resume_s, _ = count(train(resume_iters))
+    if app2.global_step != resume_iters - 1:
+        raise AssertionError(f"PDRA resume ended at {app2.global_step}")
+    ckpt = os.path.join(ld, "checkpoints", "last.ckpt")
+    app3, ev_launches, test_nv_s, _ = count(
+        ov + ["app.phase=test_nv", f"app.eval.ckpt={ckpt}"])
+
+    rows = _stage_rows(app2)
+    train_rows = [r for r in rows if "train/metric/srgb/MSE" in r]
+    if [r["step"] for r in train_rows] != list(range(resume_iters)):
+        raise AssertionError(
+            f"PDRA steps logged: {[r['step'] for r in train_rows]}")
+    if rows[n_first]["step"] != n_iters:
+        raise AssertionError(f"the resumed PDRA run did not start at "
+                             f"{n_iters}")
+    regroups = [r for r in rows if "train/metric/etc/k_val" in r]
+    if len(regroups) < 3:
+        raise AssertionError(f"{len(regroups)} regroups, want >= 3")
+    ovf = max(r["train/metric/etc/overflow"] for r in train_rows)
+    if ovf != 0.0:
+        raise AssertionError(f"PDRA train march overflow {ovf} > 0")
+    ious = [r["test_nv/metric/etc/IoU"] for r in rows + _stage_rows(app3)
+            if "test_nv/metric/etc/IoU" in r]
+    if len(ious) != 3 or not all(0.0 <= v <= 1.0 for v in ious):
+        raise AssertionError(f"test_nv IoUs: {ious}")
+    for a, step in ((app, n_iters - 1), (app2, resume_iters - 1),
+                    (app3, resume_iters - 1)):
+        _assert_eval_files(a, step, mesh=True)
+    missing = ([k for k in PDRA_TRAIN_KERNELS if launches[k] == 0]
+               + [f"test_nv {k}" for k in LTS_EVAL_KERNELS
+                  if ev_launches[k] == 0])
+
+    relight = {}
+    for phase in RELIGHT_PHASES:
+        _keep_first_frame(work, phase)
+        a, rl, s, pk = count(ov + [f"app.phase={phase}",
+                                   f"app.eval.ckpt={ckpt}"])
+        r = _stage_rows(a)[-1]
+        m = {k.split("/metric/")[1]: v for k, v in r.items()
+             if "/metric/" in k}
+        if not all(np.isfinite(m[k]) for k in (
+                "lin/PSNR", "etc/emo_MSE_first", "etc/emo_MSE_last")):
+            raise AssertionError(f"{phase}: {m}")
+        if a.timings["ft_overflow_max"] != 0.0:
+            raise AssertionError(f"{phase}: fine-tune overflow "
+                                 f"{a.timings['ft_overflow_max']}")
+        missing += [f"{phase} {k}" for k in RELIGHT_KERNELS if rl[k] == 0]
+        print(f"[{phase}] emo_MSE first {m['etc/emo_MSE_first']} last "
+              f"{m['etc/emo_MSE_last']}", flush=True)
+        relight[phase] = {
+            "s": s, "peak_memory_gb": pk,
+            "s_per_image": a.timings["relight_s_per_image"],
+            "images": a.timings["relight_images"],
+            "ft_filter_s": a.timings["ft_filter_s"],
+            "ft_cache_s": a.timings["ft_cache_s"],
+            "ft_steps_s": a.timings["ft_steps_s"],
+            "ft_step_ms": a.timings["ft_steps_s"] / ft_iters * 1e3,
+            "ft_edit_rays": a.timings["ft_n_edit_rays"],
+            "ft_cache_dropped": a.timings["ft_cache_dropped"],
+            "metrics": m, "launches": {k: v for k, v in rl.items() if v}}
+    if missing and device.type == "cuda":
+        raise AssertionError(f"kernels not launched by the PDRA stage: "
+                             f"{missing}")
+    steps = [r["train/metric/etc/sec_per_step"] * 1e3 for r in train_rows
+             if r["step"] not in (0, n_iters)
+             and r["step"] % group_interval != group_interval - 1]
+    ev = _stage_rows(app3)[-1]
+    return {
+        "n_rays": 2 * batch, "world_size": list(app.renderer.geo.world_size),
+        "setup_s": app.timings["setup_s"], "train_s": train_s,
+        "resume_s": resume_s, "test_nv_s": test_nv_s,
+        "median_step_ms": float(np.median(steps)), "step_ms": steps,
+        "regroups": [{"step": r["step"], "k_val": r["train/metric/etc/k_val"],
+                      "n_uncertain": r["train/metric/etc/n_uncertain"],
+                      "n_certain": r["train/metric/etc/n_certain"],
+                      "s": r["train/metric/etc/regroup_s"]}
+                     for r in regroups],
+        "eval_s_per_image": app3.timings["eval_s_per_image"],
+        "mesh_s": app3.timings["mesh_s"],
+        "ckpt_s": app2.timings["ckpt_s"],
+        "ckpt_bytes": app2.timings["ckpt_bytes"],
+        "train_peak_memory_gb": peak,
+        "mse_first": train_rows[0]["train/metric/srgb/MSE"],
+        "mse_last": train_rows[-1]["train/metric/srgb/MSE"],
+        **{f"{k}_max": max(r[f"train/metric/etc/{k}"] for r in train_rows)
+           for k in ("k1_frac", "k2_frac", "k1_frac_2nd", "k2_frac_2nd")},
+        "test_nv": {k.split("/metric/")[1]: v for k, v in ev.items()
+                    if "/metric/" in k},
+        "ious": ious, "relight": relight,
         "launches_train": {k: v for k, v in launches.items() if v},
         "launches_test_nv": {k: v for k, v in ev_launches.items() if v},
     }
@@ -1906,6 +2482,8 @@ def main() -> int:
     emit({"phase": "check", **check_small_step(device)})
     emit({"phase": "check_upstream", **check_small_upstream_steps(device)})
     emit({"phase": "check_lts", **check_small_lts_step(device)})
+    emit({"phase": "check_pdra", **check_small_pdra_step(device)})
+    emit({"phase": "check_finetune", **check_small_finetune(device)})
 
     res, launches, captured = train_full_width(device, NUM_VOXELS, N_RAYS)
     res["device"] = smi
@@ -1954,6 +2532,48 @@ def main() -> int:
     del res, captured
     torch.cuda.empty_cache()
 
+    res, pdra_launches, ft_launches, (captured, ft_captured,
+                                      relight_captured) = \
+        train_pdra_full_width(device, NUM_VOXELS, PDRA_BATCH)
+    res["device"] = smi
+    emit({"phase": "pdra_train", **res})
+    missing = ([k for k in _CAPTURED if pdra_launches[k] == 0]
+               + [f"finetune {k}" for k in FT_KERNELS if ft_launches[k] == 0])
+    if missing:
+        raise AssertionError(f"kernels not launched by the PDRA step or the "
+                             f"fine-tune: {missing}")
+    sec = res["secondary_launches"]
+    if not {"scan_fwd", "scan_bwd", "splat", "gather_weighted",
+            "gather_raw"} <= set(sec):
+        raise AssertionError(f"the PDRA secondary march launched only {sec}")
+    in_step = res["profile"]["port_kernels_ms_per_step"]
+    ft_in_step = res["finetune"]["profile"]["port_kernels_ms_per_step"]
+    emit({"phase": "pdra_in_step", "device": smi, "kernels": {
+        k: {"ms_per_step": in_step[k],
+            "launches_per_step": res["launches_per_step"][k],
+            "finetune_ms_per_step": ft_in_step[k],
+            "finetune_launches_per_step":
+                res["finetune"]["launches_per_step"][k]}
+        for k in _CAPTURED}})
+    for name, recs in (("PDRA step", captured), ("fine-tune", ft_captured)):
+        seen = {r["kernel"] for r in recs}
+        want = set(_CAPTURED) if name == "PDRA step" else set(FT_KERNELS)
+        if not want <= seen:
+            raise AssertionError(f"captured {name} launched only "
+                                 f"{sorted(seen)}")
+    widths = {r["table"].shape[1] for r in ft_captured + relight_captured
+              if r["kernel"] == "gather_weighted"}
+    if not {6, 24} <= widths:
+        raise AssertionError(f"the 6- and 24-channel gathers did not run: "
+                             f"{sorted(widths)}")
+    replay_launches([dict(r, site=f"{tag}: " + r["site"])
+                     for tag, recs in (("pdra", captured),
+                                       ("finetune", ft_captured),
+                                       ("relight", relight_captured))
+                     for r in records_to(recs, device)], device)
+    del res, captured, ft_captured, relight_captured
+    torch.cuda.empty_cache()
+
     gb_rows = check_gather_bench(device)
     zero = [r["name"] for r in gb_rows if r["launches"] == 0]
     if zero:
@@ -1961,6 +2581,8 @@ def main() -> int:
     rows += gb_rows
     for r in rows:
         r["launches_lts_step"] = lts_launches.get(r["name"], 0)
+        r["launches_pdra_step"] = pdra_launches.get(r["name"], 0)
+        r["launches_finetune_step"] = ft_launches.get(r["name"], 0)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="esr_smoke_") as work:
@@ -1969,8 +2591,12 @@ def main() -> int:
         emit({"phase": "trainer", **tr})
         torch.cuda.empty_cache()
         lt = lts_stage(device, work)
-    lt["device"] = smi
-    emit({"phase": "lts_trainer", **lt})
+        lt["device"] = smi
+        emit({"phase": "lts_trainer", **lt})
+        torch.cuda.empty_cache()
+        pd = pdra_stage(device, work)
+    pd["device"] = smi
+    emit({"phase": "pdra_trainer", **pd})
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="esr_chain_") as work:

@@ -122,6 +122,28 @@ def build_fine_train_step(model, opt, cfg, device="cuda") -> Callable:
     return train_step
 
 
+def composite_hdr(imgs: Dict[str, np.ndarray],
+                  white_bg: float) -> Dict[str, np.ndarray]:
+    """The white-background composite of an HDR render: ``lin/*`` images
+    plus the background, clipped at 0 and, clipped to [0, 1] and gamma
+    curved, as ``<key>_gamma``; the rest clipped to [0, 1] (``etc/white_bg``
+    itself only clipped)."""
+    wbg = imgs["etc/white_bg"] * white_bg
+    final = {}
+    for k, v in imgs.items():
+        if k == "etc/white_bg":
+            final[k] = np.clip(v, 0.0, 1.0)
+            continue
+        add = wbg[..., None] if v.ndim == 3 else wbg
+        if k.startswith("lin/"):
+            final[f"{k}_gamma"] = apply_gamma_curve(torch.from_numpy(
+                np.clip(v + add, 0.0, 1.0))).numpy()
+            final[k] = np.clip(v + add, 0.0, None)
+        else:
+            final[k] = np.clip(v + add, 0.0, 1.0)
+    return final
+
+
 class Fine(AppClass):
     STAGE_CLS = "fine.Fine"
     PREV_CLS = "coarse.Coarse"
@@ -428,21 +450,9 @@ class Fine(AppClass):
                 data, ("rays_o", "rays_d", "viewdirs"),
                 lambda ro, rd, vd: self._eval_chunk(ro, rd, vd, em, pos_rt,
                                                     s_val))
-            imgs = self._pre_composite_hook(imgs, data, metrics)
-            wbg = imgs["etc/white_bg"] * self.white_bg
-            final = {}
-            for k, v in imgs.items():
-                if k == "etc/white_bg":
-                    final[k] = np.clip(v, 0.0, 1.0)
-                    continue
-                add = wbg[..., None] if v.ndim == 3 else wbg
-                if k.startswith("lin/"):
-                    final[f"{k}_gamma"] = apply_gamma_curve(torch.from_numpy(
-                        np.clip(v + add, 0.0, 1.0))).numpy()
-                    final[k] = np.clip(v + add, 0.0, None)
-                else:
-                    final[k] = np.clip(v + add, 0.0, 1.0)
-            imgs = final
+            imgs = composite_hdr(self._pre_composite_hook(imgs, data,
+                                                          metrics),
+                                 self.white_bg)
 
             hdrs = data["hdrs"].reshape(height, width, 3)
             rgbs = data["rgbs"].reshape(height, width, 3)

@@ -214,22 +214,32 @@ class LTS(Fine):
             self.opt_state = ckpt_io.to_device(t["optimizer"], self.device)
             self.lr_scales = dict(t["lr_scales"])
             self.lr_scheduler = CosineLR.from_cfg(self.cfg, self.global_step)
-            self.sampler = self._make_sampler(data, t["data_idxs"],
-                                              t["batch_st"])
+            self.sampler = self._resume_sampler(data, t)
             print(f"resume training from step {self.global_step}")
 
-    def _make_sampler(self, data, uncert_data_idxs, uncert_batch_st=0):
+    def _make_sampler(self, data, uncert_data_idxs):
         """Every ray starts uncertain; the certain pool's batch is 0."""
         return RayGroupManager(
             self.cfg, data, self.data_keys, self.train_bs, 0,
-            uncert_batch_st=uncert_batch_st,
             uncert_data_idxs=uncert_data_idxs, seed=self.cfg.system["seed"])
+
+    def _resume_sampler(self, data, t):
+        """The sampler of a resumed run from its checkpoint's ``trainer``
+        part ``t``."""
+        return RayGroupManager(
+            self.cfg, data, self.data_keys, self.train_bs, 0,
+            uncert_batch_st=t["batch_st"], uncert_data_idxs=t["data_idxs"],
+            seed=self.cfg.system["seed"])
 
     # ---------------------------------------------------------------- train
 
+    def _train_step(self) -> Callable:
+        """The stage's train step (PDRA: its own loss)."""
+        return build_lts_train_step(self.renderer, self.opt, self.cfg,
+                                    device=self.device)
+
     def learn(self) -> None:
-        step_fn = build_lts_train_step(self.renderer, self.opt, self.cfg,
-                                       device=self.device)
+        step_fn = self._train_step()
         gen = step_generator(self.device, self.cfg.system["seed"],
                              self.global_step)
         ckpt_dir = self.ckpt_dir()
@@ -258,7 +268,7 @@ class LTS(Fine):
                 float(self.weight_tv_density * self.tvs["sdf"]
                       / self.train_bs),
                 self.global_step < self.tv_dense_before, generator=gen)
-            mse, lin_mse, off_l, emo_l, ovf, k1f, k2f, k1f2, k2f2 = aux
+            mse, lin_mse, off_l, emo_l, ovf, k1f, k2f, k1f2, k2f2 = aux[:9]
             n_since += 1
 
             if self.global_step == tune_step:

@@ -1,18 +1,21 @@
-"""ESR-NeRF blender-style dataset loader, ``train`` and ``test_nv`` phases.
+"""ESR-NeRF blender-style dataset loader.
 
 Port of ``esrnerf_tpu/data/esrnerf.py`` (numpy): ``transforms_{phase}.json``
 with per-frame light modes; ``test_nv`` also loads the emission-area masks
-and the HDR EXRs; rays derive from the poses through the blender -> OpenCV
-flip; RGBA is composited over a white or black background; the train phase
-flattens all images into one ray pool. The arrays equal the JAX loader's.
+and the HDR EXRs, the relighting phases (``test_nvc``, ``test_nvi``,
+``test_nvic``) each light's edit mask and its edit colour (hue,
+saturation) and/or intensity; rays derive from the poses through the
+blender -> OpenCV flip; RGBA is composited over a white or black
+background; the train phase flattens all images into one ray pool. The
+arrays equal the JAX loader's.
 
 PNGs are read with :mod:`esrnerf_tpu_torch.utils.png` and EXRs with
 :mod:`esrnerf_tpu_torch.utils.exr`, so neither PIL nor OpenCV is needed.
 Only a ``data.resize`` that changes the image size imports them (PIL's
 Lanczos for images and masks, OpenCV's Lanczos-4 for HDRs, as the JAX
 loader does); at ``resize: 1.0`` those resamplers return their input.
-The relighting phases (``test_nvc``, ``test_nvi``, ``test_nvic``) are not
-ported yet.
+The JAX loader also reads the relighting phases' HDR EXRs and never uses
+them; this one does not read them.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from esrnerf_tpu_torch.utils import exr, png
 BLENDER2OPENCV = np.array(
     [[1, 0, 0, 0], [0, -1, 0, 0], [0, 0, -1, 0], [0, 0, 0, 1]], dtype=np.float32
 )
-PHASES = ("train", "test_nv")
+PHASES = ("train", "test_nv", "test_nvc", "test_nvi", "test_nvic")
 
 
 def _imread_float(path: str) -> np.ndarray:
@@ -63,9 +66,7 @@ def _hdr_resize(hdr: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 class ESRNeRF(DataClass):
     def __init__(self, cfg, phase: str):
         if phase not in PHASES:
-            raise NotImplementedError(
-                f"phase '{phase}': the port loads {PHASES} only (the "
-                "relighting phases are on the ROADMAP)")
+            raise ValueError(f"unknown phase '{phase}' (one of {PHASES})")
         super().__init__(cfg, phase)
         tpath = os.path.join(
             self.root, str(self.scene), "transforms", f"transforms_{phase}.json"
@@ -149,6 +150,16 @@ class ESRNeRF(DataClass):
             sample["hdr"] = exr.imread(
                 os.path.join(scene_dir, dname, "exr", fname + ".exr")
             )[..., :3].astype(np.float32)
+        if self.phase not in ("train", "test_nv"):
+            sample["em_mask"] = [
+                _imread_float(os.path.join(scene_dir,
+                                           light["mask_path"] + ".png"))
+                for light in frame["lights"]
+            ]
+            sample["em_color"] = [light["color"] for light in frame["lights"]]
+            sample["em_intensity"] = [
+                light["intensity"] for light in frame["lights"]
+            ]
         return sample
 
     # ----------------------------------------------------------- preprocess
@@ -161,6 +172,12 @@ class ESRNeRF(DataClass):
         if self.phase == "test_nv":
             cache["areas"] = []
             cache["hdrs"] = []
+        if self.phase in ("test_nvi", "test_nvic"):
+            cache["em_masks"] = []
+            cache["em_intensities"] = []
+        if self.phase in ("test_nvc", "test_nvic"):
+            cache["em_masks"] = []
+            cache["em_colors"] = []
 
         wh = (self.width, self.height)
         n_px = self.width * self.height
@@ -180,14 +197,27 @@ class ESRNeRF(DataClass):
                 cache["em_modes"].append(
                     np.asarray([LightDict[m] for m in s["em_mode"]], dtype=np.int64)
                 )
-                area = s["area"]
-                if self._resample:
-                    area = _imresize(area, wh)
-                cache["areas"].append((area[..., 0] > 0.5).reshape(-1))
-                hdr = s["hdr"]
-                if self._resample:
-                    hdr = _hdr_resize(hdr, wh)
-                cache["hdrs"].append(hdr.reshape(n_px, -1))
+                if self.phase == "test_nv":
+                    area = s["area"]
+                    if self._resample:
+                        area = _imresize(area, wh)
+                    cache["areas"].append((area[..., 0] > 0.5).reshape(-1))
+                    hdr = s["hdr"]
+                    if self._resample:
+                        hdr = _hdr_resize(hdr, wh)
+                    cache["hdrs"].append(hdr.reshape(n_px, -1))
+                else:
+                    masks = s["em_mask"]
+                    if self._resample:
+                        masks = [_imresize(m, wh) for m in masks]
+                    cache["em_masks"].append(
+                        np.stack([m[..., 0].reshape(-1) for m in masks], 0))
+                    if self.phase in ("test_nvc", "test_nvic"):
+                        cache["em_colors"].append(
+                            np.asarray(s["em_color"], dtype=np.float32))
+                    if self.phase in ("test_nvi", "test_nvic"):
+                        cache["em_intensities"].append(
+                            np.asarray(s["em_intensity"], dtype=np.float32))
 
         out = {k: np.stack(v, axis=0) for k, v in cache.items() if len(v) > 0}
 

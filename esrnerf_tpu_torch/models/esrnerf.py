@@ -12,11 +12,12 @@ The secondary fan-out (points x directions) is one batched march with its
 own budgets, the same ``[N, S] -> K1 -> K2`` pipeline as the primary march.
 The reference's random choice of up to ``num_ltspts`` surface points is a
 fixed-size selection with a validity mask. Randomness comes in as explicit
-tensors (:class:`LTSDraws`, :func:`training_draws`), so a test can feed
+tensors (:class:`LTSDraws`, :class:`FinetuneDraws`), so a test can feed
 the JAX package's draws.
 
-Not ported yet (the PDRA stage's): ``eval_emit``, ``eval_esp``,
-``forward_finetune`` and the HSV helpers.
+The PDRA stage's pieces: the per-ray emission and expected surface point
+probes (:meth:`ESRNeRF.eval_emit`, :meth:`ESRNeRF.eval_esp`) and the
+relighting fine-tune's forward (:meth:`ESRNeRF.forward_finetune`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from esrnerf_tpu_torch.models.voxurf_base import _linspace
 from esrnerf_tpu_torch.models.voxurff import NORMAL_FLIPPER, VoxurfF
 from esrnerf_tpu_torch.ops import grid as gridops
 from esrnerf_tpu_torch.ops import pbr as pbrops
+from esrnerf_tpu_torch.ops.image import hsv_to_rgb, rgb_to_hsv
 from esrnerf_tpu_torch.utils.device import small_const
 
 Params = Dict[str, object]
@@ -46,6 +48,14 @@ class LTSDraws(NamedTuple):
     scatter: torch.Tensor     # [P, n2 + 1, 3] normals of the scattering
     normal_eps: torch.Tensor  # [K2, 3] normals of the normal perturbation
     emit_eps: torch.Tensor    # [K2, 3] normals of the emission perturbation
+
+
+class FinetuneDraws(NamedTuple):
+    """The random draws of one fine-tune forward, in the JAX package's
+    order (``jax.random.split(rng)``)."""
+
+    select: torch.Tensor   # [B * ppr] (cached slots) or [K2] uniform scores
+    scatter: torch.Tensor  # [P, n2 + 1, 3] normals of the scattering
 
 
 def _unit_normal(g: torch.Tensor) -> torch.Tensor:
@@ -113,6 +123,17 @@ class ESRNeRF(VoxurfF):
             torch.randn((k2, 3), generator=g, device=gd),
         )
 
+    def finetune_draws(self, generator: torch.Generator,
+                       n_rows: int) -> FinetuneDraws:
+        """The draws of :meth:`forward_finetune` over ``n_rows`` candidate
+        rows (cached slots, or the march's head rows)."""
+        g, gd = generator, generator.device
+        return FinetuneDraws(
+            torch.rand((n_rows,), generator=g, device=gd),
+            pbrops.scattering_draws(g, (self.num_ltspts,),
+                                    self.num_2ndrays + 1),
+        )
+
     # --------------------------------------------------------------- helpers
 
     def scattering(self, draws: Optional[torch.Tensor], normal: torch.Tensor,
@@ -153,16 +174,19 @@ class ESRNeRF(VoxurfF):
         return torch.cat([self._xyz_emb_full(pts), sdf[:, None], feat6,
                           normals], -1)
 
-    def _brdf_heads(self, params, pts, brdf_feat, grid_vals=None):
+    def _brdf_heads(self, params, pts, brdf_feat, grid_vals=None,
+                    emit_grid_key: str = "emo_color"):
         """BRDFNet (sigmoid, split 3/1/1) and EmissionNet (softplus).
         ``grid_vals``: the ``(brdf, emission grid)`` samples of the march
-        points from the fused gather; else the BRDF and emo grids are read
-        at ``pts`` (any order) by the plain sampler."""
+        points from the fused gather; else the BRDF grid and the emission
+        grid ``emit_grid_key`` (the live emo grid, or the fine-tune's frozen
+        ``emit_color`` snapshot) are read at ``pts`` (any order) by the
+        plain sampler."""
         if grid_vals is not None:
             brdf_val, emit_val = grid_vals
         else:
             brdf_val = self.geo.sample_grid(params["brdf"], pts)
-            emit_val = self.geo.sample_grid(params["emo_color"], pts)
+            emit_val = self.geo.sample_grid(params[emit_grid_key], pts)
         bx = torch.cat([brdf_val, brdf_feat], -1)
         brdf_out = torch.sigmoid(mlpops.apply_mlp(
             params["brdfnet"], bx, compute_dtype=self.mlp_dtype))
@@ -175,14 +199,13 @@ class ESRNeRF(VoxurfF):
 
     # ------------------------------------------------------- secondary march
 
-    def _secondary_radiance(self, params: Params, rays_o, dirs, s_val):
+    def _secondary_radiance(self, params: Params, rays_o, dirs, s_val,
+                            heads=("off", "emo")):
         """Incoming radiance along secondary rays: a march from
-        ``lts_near`` with the secondary budgets, the off and emo heads at
+        ``lts_near`` with the secondary budgets, the radiance ``heads`` at
         its points (one fused gather of their color grids) and the per-ray
-        sums. Returns ``({"off", "emo": [Nsec, 3]}, alphainv_last [Nsec],
-        stats)`` with ``stats = (overflow, k1_frac, k2_frac)`` of this
-        march."""
-        heads = ("off", "emo")
+        sums. Returns ``({head: [Nsec, 3]}, alphainv_last [Nsec], stats)``
+        with ``stats = (overflow, k1_frac, k2_frac)`` of this march."""
         geo = self.geo
         Nsec = rays_o.shape[0]
         with record_function("lts/march_2nd"):
@@ -494,3 +517,154 @@ class ESRNeRF(VoxurfF):
             "etc/overflow": sec_stats[0],
         }
 
+
+    # ------------------------------------------------------- emission probes
+
+    @torch.no_grad()
+    def eval_emit(self, params: Params, rays_o, rays_d, viewdirs, s_val,
+                  emit_grid_key: str = "emo_color"):
+        """Per-ray rendered emission: ``(emission [N, 3], overflow [])``.
+        The overflow goes back to the regroup, so that a truncated render
+        cannot move a ray to the certain pool unseen."""
+        geo = self.geo
+        m = geo.march(params["sdf"], rays_o, rays_d, viewdirs, s_val,
+                      self.fastcolor_thres, self.neus_alpha, style="fine")
+        brdf_feat = self._brdf_feat(params, m.pts, m.sdf, n_valid=m.n_valid)
+        ex = torch.cat([geo.sample_grid_sorted(params[emit_grid_key], m.pts,
+                                               m.n_valid), brdf_feat], -1)
+        emit = F.softplus(mlpops.apply_mlp(params["emitnet"], ex,
+                                           compute_dtype=self.mlp_dtype))
+        return geo.segment_to_rays(m, emit), m.overflow
+
+    @torch.no_grad()
+    def eval_esp(self, params: Params, rays_o, rays_d, viewdirs, s_val):
+        """Expected surface point per ray: ``(esp [N, 3], overflow [])``."""
+        geo = self.geo
+        m = geo.march(params["sdf"], rays_o, rays_d, viewdirs, s_val,
+                      self.fastcolor_thres, self.neus_alpha, style="fine")
+        return geo.segment_to_rays(m, m.pts), m.overflow
+
+    # --------------------------------------------------------------- finetune
+
+    def forward_finetune(
+        self, params: Params, frozen: Params, rays_o, rays_d, viewdirs,
+        em_modes, em_intensities, em_colors, s_val,
+        draws: Optional[FinetuneDraws] = None,
+        generator: Optional[torch.Generator] = None,
+        ft_pts=None, ft_valid=None,
+    ) -> Dict[str, torch.Tensor]:
+        """The relighting fine-tune's forward. ``params`` holds the
+        trainable emo branch (``emo_color``, ``emo_rgbnet``), ``frozen``
+        everything else, with the ``emit_color`` snapshot. Only
+        ``lin/pbr/emo`` carries gradients; the edited target
+        ``lin/pbr/emo_hat`` is built without them.
+
+        ``ft_pts`` / ``ft_valid`` (``[B, ppr, 3]`` / ``[B, ppr]``): each
+        ray's surviving samples against the frozen SDF
+        (:meth:`VoxurfGeometry.march_ray_slots`); the surface points are
+        then drawn from those slots and the step runs no primary march.
+        ``draws`` (or, if None, draws from ``generator``) supplies the
+        randomness. The phases run inside the ranges
+        ``relight/{march,select,heads,target}``."""
+        geo = self.geo
+        full = {**frozen, **params}
+        n2 = self.num_2ndrays
+
+        with record_function("relight/select"):
+            if ft_pts is not None:
+                B, ppr = ft_valid.shape
+                flat_pts = ft_pts.reshape(B * ppr, 3)
+                flat_ok = ft_valid.reshape(B * ppr)
+                if draws is None:
+                    draws = self.finetune_draws(generator, B * ppr)
+                # the lowest scores among the filled slots, ties to the
+                # lower index (top_k's), ascending
+                scores = torch.where(flat_ok, draws.select,
+                                     torch.full_like(draws.select, 2.0))
+                sel = torch.argsort(scores, stable=True)[:self.num_ltspts]
+                sel, _ = torch.sort(sel)
+                valid = flat_ok.index_select(0, sel)
+                pts = flat_pts.index_select(0, sel)
+                rid_sel = torch.div(sel, ppr, rounding_mode="floor")
+            else:
+                with record_function("relight/march"):
+                    m = geo.march(full["sdf"], rays_o, rays_d, viewdirs,
+                                  s_val, self.fastcolor_thres,
+                                  self.neus_alpha, style="fine")
+                if draws is None:
+                    draws = self.finetune_draws(generator, m.pts.shape[0])
+                rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
+                sel, valid = self._select_lts_points(draws.select, m,
+                                                     self.num_ltspts)
+                pts = m.pts.index_select(0, sel)
+                rid_sel = rid.index_select(0, sel)
+            P = pts.shape[0]
+            vd = viewdirs.index_select(0, rid_sel)
+            modes = em_modes.index_select(0, rid_sel)
+            intens = em_intensities.index_select(0, rid_sel)
+            colors = em_colors.index_select(0, rid_sel)
+
+            sdf, exp_grad = self.sample_sdf_expgrad(full["sdf"], pts)
+            sdf, normal = sdf.detach(), _unit_normal(exp_grad).detach()
+            dirs_all = self.scattering(draws.scatter, normal, n2 + 1)
+            vd_rand = -dirs_all[:, -1]
+            dirs = dirs_all[:, :-1]
+
+        with record_function("relight/heads"):
+            # surface emo radiance, the only branch with gradients. The
+            # taps' pad-chunk skip holds only for the march's selection
+            # (pads at the tail); cached slots interleave pads, so they
+            # pass no n_valid
+            taps = self._sdf_taps(full, pts,
+                                  valid.sum() if ft_pts is None else None)
+            feat6, normals6 = taps
+            vd2 = torch.cat([vd, vd_rand], 0)
+            rgb_feat = torch.cat(
+                [self._xyz_emb_full(pts).repeat(2, 1), self._view_emb(vd2),
+                 sdf[:, None].repeat(2, 1), feat6.repeat(2, 1),
+                 normals6.repeat(2, 1)], -1)
+            ex = torch.cat([geo.sample_grid(full["emo_color"],
+                                            pts.repeat(2, 1)), rgb_feat], -1)
+            emo = F.softplus(mlpops.apply_mlp(
+                full["emo_rgbnet"], ex, compute_dtype=self.mlp_dtype))
+
+        with torch.no_grad(), record_function("relight/target"):
+            # the edited target. The taps equal those of the features but
+            # for an all-invalid selection, whose rows no loss reads
+            brdf_feat = self._brdf_feat(full, pts, sdf, taps=taps)
+            basecolor, roughness, metallic, emit = self._brdf_heads(
+                full, pts, brdf_feat, emit_grid_key="emit_color")
+
+            def flat(x, d=3):
+                return x[:, None].expand(P, n2, d).reshape(P * n2, d)
+
+            sec_d = dirs.reshape(P * n2, 3)
+            R = pbrops.disney_reflection(
+                flat(basecolor).repeat(2, 1), flat(roughness, 1).repeat(2, 1),
+                flat(metallic, 1).repeat(2, 1), flat(normal).repeat(2, 1),
+                sec_d.repeat(2, 1),
+                torch.cat([-flat(vd), -flat(vd_rand)], 0),
+            )
+            inc, _, sec_stats = self._secondary_radiance(
+                full, flat(pts), sec_d, s_val, heads=("emo",))
+
+            # the light edits: off, intensity, colour (hue and saturation)
+            off_m = (modes == 0)[:, None]
+            i_m = ((modes == 2) | (modes == 4))[:, None]
+            c_m = ((modes == 3) | (modes == 4))[:, None]
+            emit = torch.where(off_m, torch.zeros_like(emit), emit)
+            emit = torch.where(i_m, emit * intens[:, None], emit)
+            hsv = rgb_to_hsv(emit)
+            hsv_edit = torch.cat([colors[..., :2], hsv[..., 2:]], -1)
+            emit = torch.where(c_m, hsv_to_rgb(hsv_edit), emit)
+
+            reflect = (inc["emo"].repeat(2, 1) * R).reshape(
+                2 * P, n2, 3).mean(-2)
+            emo_hat = emit.repeat(2, 1) + reflect
+
+        return {
+            "lin/pbr/emo": emo,
+            "lin/pbr/emo_hat": emo_hat,
+            "lin/pbr/valid": valid.repeat(2),
+            "etc/overflow": sec_stats[0],
+        }

@@ -18,8 +18,9 @@ Also here: the SDF surface-band cull of the LTS and PDRA stages
 ``surf_band_factor > 0``), the march's per-call budgets and near plane (the
 LTS secondary march), the training-ray filter in both styles
 (:meth:`VoxurfGeometry.filter_rays_in_maskcache`), the SDF value and
-gradient sampler of the eval normals, and the mesh extraction. Not ported
-yet: ``march_ray_slots`` (the PDRA fine-tune's).
+gradient sampler of the eval normals, the mesh extraction, and the
+per-ray sample slots of the PDRA relighting fine-tune
+(:meth:`VoxurfGeometry.march_ray_slots`).
 """
 
 from __future__ import annotations
@@ -599,6 +600,43 @@ class VoxurfGeometry:
             cum_weights=cum_weights, n_rays=N, overflow=overflow,
             n_valid=nv2, k1_frac=n1f / K1, k2_frac=n2f / K2,
         )
+
+    @torch.no_grad()
+    def march_ray_slots(self, sdf_grid_smooth, rays_o, rays_d, viewdirs,
+                        s_val, fastcolor_thres, neus_alpha, ppr: int):
+        """One fine-style march with its surviving samples regrouped per
+        ray: ``(pts [N, ppr, 3], valid [N, ppr], (counts [N], dropped
+        [N]))``. The relighting fine-tune's SDF is frozen, so its march is
+        a function of the ray alone and runs once per test image. A ray
+        keeps its first ``ppr`` samples in the march's cell order and drops
+        the rest (``dropped``); ``counts`` are its survivors."""
+        m = self.march(sdf_grid_smooth, rays_o, rays_d, viewdirs, s_val,
+                       fastcolor_thres, neus_alpha, style="fine")
+        N, K = m.n_rays, m.pts.shape[0]
+        dev = m.pts.device
+        # group rows by ray; the stable sort keeps the cell order within a
+        # ray, and pads (ray id N) land at the end
+        order = torch.argsort(m.ray_id, stable=True)
+        rid_s = m.ray_id.index_select(0, order)
+        pts_s = m.pts.index_select(0, order)
+        pad_s = m.pad.index_select(0, order)
+        starts = torch.searchsorted(
+            rid_s, torch.arange(N, dtype=rid_s.dtype, device=dev))
+        rank = torch.arange(K, device=dev) - starts.index_select(
+            0, torch.clamp(rid_s, max=N - 1))
+        ok = ~pad_s & (rank < ppr)
+        # every kept row has its own slot; the rest go to a dump row
+        tgt = torch.where(ok, rid_s * ppr + torch.clamp(rank, 0, ppr - 1),
+                          torch.full_like(rid_s, N * ppr))
+        pts_slots = torch.zeros((N * ppr + 1, 3), dtype=torch.float32,
+                                device=dev).index_put_((tgt,), pts_s)
+        valid = torch.zeros(N * ppr + 1, dtype=torch.bool,
+                            device=dev).index_put_((tgt,), ok)
+        counts = torch.zeros(N + 1, dtype=torch.int32, device=dev).index_add_(
+            0, torch.clamp(rid_s, max=N), (~pad_s).to(torch.int32))[:N]
+        dropped = torch.clamp(counts - ppr, min=0)
+        return (pts_slots[:-1].reshape(N, ppr, 3),
+                valid[:-1].reshape(N, ppr), (counts, dropped))
 
     def segment_to_rays(self, march: March, values: torch.Tensor):
         """Weighted per-ray sum of per-point values (``index_add_``; on

@@ -1,4 +1,5 @@
-"""Image-space ops. Port of ``esrnerf_tpu/ops/image.py::apply_gamma_curve``."""
+"""Image-space ops. Port of ``esrnerf_tpu/ops/image.py``: the sRGB OETF
+and the RGB <-> HSV pair of the relighting fine-tune's colour edits."""
 
 from __future__ import annotations
 
@@ -11,3 +12,41 @@ def apply_gamma_curve(image: torch.Tensor) -> torch.Tensor:
     # clamp the argument so the unused pow branch stays finite for autograd
     high = 1.055 * torch.pow(torch.clamp(image, min=1e-12), 1.0 / 2.4) - 0.055
     return torch.where(image <= 0.0031308, low, high)
+
+
+def rgb_to_hsv(rgb: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Kornia-style RGB -> HSV with h in [0, 1). Hue ties go to the first
+    maximal channel; ``%`` is floor-mod (``torch.remainder``)."""
+    max_rgb, argmax_rgb = rgb.max(-1)
+    min_rgb = rgb.min(-1).values
+    deltac = max_rgb - min_rgb
+
+    v = max_rgb
+    s = deltac / (max_rgb + eps)
+
+    deltac_safe = torch.where(deltac == 0, torch.ones_like(deltac), deltac)
+    diff = max_rgb[..., None] - rgb
+    rc, gc, bc = diff[..., 0], diff[..., 1], diff[..., 2]
+
+    h1 = bc - gc
+    h2 = (rc - bc) + 2.0 * deltac_safe
+    h3 = (gc - rc) + 4.0 * deltac_safe
+    h = torch.stack([h1, h2, h3], dim=-1) / deltac_safe[..., None]
+    h = torch.gather(h, -1, argmax_rgb[..., None])[..., 0]
+    h = torch.remainder(h / 6.0, 1.0)
+    return torch.stack([h, s, v], dim=-1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    hi = torch.remainder(torch.floor(h * 6), 6)
+    f = torch.remainder(h * 6, 6) - hi
+    p = v * (1.0 - s)
+    q = v * (1.0 - f * s)
+    t = v * (1.0 - (1.0 - f) * s)
+
+    hi = hi.to(torch.int64)
+    indices = torch.stack([hi, hi + 6, hi + 12], dim=-1)
+    table = torch.stack(
+        [v, q, p, p, t, v, t, v, v, q, p, p, p, p, t, v, v, q], dim=-1)
+    return torch.gather(table, -1, indices)

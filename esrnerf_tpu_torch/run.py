@@ -6,12 +6,13 @@
 Mirrors the JAX package's ``run.py``: stage classes resolve by the same
 dotted names (``app.cls``), the resolved config is saved into the log dir
 with a copy of the port's package, and a training run resumes from
-``<log.dir>/checkpoints/last.ckpt``. The first four stages are ported
-(``coarse.AlphaMask``, ``coarse.Coarse``, ``fine.Fine``, ``fine.LTS``):
-with one ``log.root`` and ``log.name``, coarse finds alphamask's
-``last.ckpt``, fine finds coarse's and LTS finds fine's by path, so they
-chain without ``app.trainer.ckpt``. ``fine.PDRA`` raises
-``NotImplementedError``.
+``<log.dir>/checkpoints/last.ckpt``. All five stages are ported
+(``coarse.AlphaMask``, ``coarse.Coarse``, ``fine.Fine``, ``fine.LTS``,
+``fine.PDRA``): with one ``log.root`` and ``log.name``, coarse finds
+alphamask's ``last.ckpt``, fine finds coarse's, LTS finds fine's and PDRA
+finds LTS's by path, so they chain without ``app.trainer.ckpt``. PDRA's
+eval phases are ``test_nv`` and the relighting phases ``test_nvc``,
+``test_nvi`` and ``test_nvic``.
 ``system.device=cpu`` runs on the CPU (the plain PyTorch versions of the
 kernels); any other value, including the configs' ``tpu`` or none, means
 the GPU, and the run raises when CUDA is not available.
@@ -31,8 +32,8 @@ STAGE_REGISTRY = {
     "coarse.Coarse": "esrnerf_tpu_torch.apps.coarse.Coarse",
     "fine.Fine": "esrnerf_tpu_torch.apps.fine.Fine",
     "fine.LTS": "esrnerf_tpu_torch.apps.lts.LTS",
+    "fine.PDRA": "esrnerf_tpu_torch.apps.pdra.PDRA",
 }
-NOT_PORTED = ("fine.PDRA",)
 
 
 def _snapshot_code(log_dir: str) -> None:
@@ -73,10 +74,6 @@ def main(argv=None):
 
     cfg = customize_cfg(load_cfg(args.config_name, args.overrides))
     cls = cfg.app["cls"]
-    if cls in NOT_PORTED:
-        raise NotImplementedError(
-            f"stage '{cls}' is not ported to PyTorch yet (see ROADMAP.md); "
-            "run it with the JAX package's run.py")
     cls_path = STAGE_REGISTRY.get(cls)
     if cls_path is None:
         raise KeyError(f"unknown app.cls '{cls}'")

@@ -1,5 +1,5 @@
-"""Quality metrics: PSNR, mipnerf-style SSIM, LPIPS and the DTU
-Chamfer-distance protocol.
+"""Quality metrics: PSNR, mipnerf-style SSIM, LPIPS, the emission-mask IoU
+and the DTU Chamfer-distance protocol.
 
 Port of ``esrnerf_tpu/utils/metrics.py``. Meshes are plain ``(vertices,
 faces)`` numpy arrays. LPIPS resolves its scorer in the JAX package's
@@ -162,6 +162,16 @@ def rgb_lpips(np_gt: np.ndarray, np_im: np.ndarray, net_name: str = "alex",
     im = torch.from_numpy(np.ascontiguousarray(np_im)).permute(2, 0, 1).float()
     with torch.no_grad():
         return float(model(gt, im, normalize=True).item())
+
+
+def IoU(mask1: np.ndarray, mask2: np.ndarray) -> Tuple[float, int, int]:
+    """``(iou, intersection, union)`` of two boolean masks (the union
+    counts at least 1)."""
+    m1 = np.asarray(mask1, dtype=bool)
+    m2 = np.asarray(mask2, dtype=bool)
+    inter = int((m1 & m2).sum())
+    union = max(1, int((m1 | m2).sum()))
+    return inter / union, inter, union
 
 
 def _sample_tri_batch(n1, n2, v1, v2, tri_vert0, thresh):

@@ -379,3 +379,63 @@ def test_small_lts_step_on_card_matches_cpu(dev):
     for k in ("scan_fwd", "scan_bwd", "splat", "gather_weighted",
               "gather_raw"):
         assert kernels.launches[k] > n0[k], k
+
+
+# ------------------------------------------------ the PDRA step, relighting
+
+
+@pytest.mark.parametrize("C", [6, 24])
+def test_gather_kernel_pdra_widths(dev, C):
+    """The fine-tune's 6-channel emo-only gather and the relight render's
+    24-channel fused gather (off, emo, BRDF, emit_color) through K-4,
+    bitwise to the plain version, with a pad tail."""
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.ops import splat as splatops
+
+    rng = np.random.default_rng(C)
+    R, M = 40000, 9000
+    offs = (0, 1, 17, 18, 289, 290, 306, 307)
+    table = torch.randn(R, C, device=dev)
+    base = torch.as_tensor(np.sort(rng.integers(-5, R, M)), device=dev)
+    w = torch.rand(M, 8, device=dev)
+    nv = torch.tensor(3 * 2048 + 11, device=dev)
+    n0 = kernels.launches["gather_weighted"]
+    got = splatops.sorted_corner_gather(table, base, w, offs, False, nv)
+    assert kernels.launches["gather_weighted"] == n0 + 1
+    _close(got, splatops._gather_plain(table, base, w, offs, False, nv), 0, 0)
+    assert float(got[4 * 2048:].abs().max()) == 0.0
+
+
+def test_small_pdra_step_on_card_matches_cpu(dev):
+    """One small PDRA step (32^3, 64 rays, certain and uncertain) on the
+    card against the same step on the CPU from the same parameters, batch
+    and draws: the loss terms at rtol 1e-4, both marches' counters equal,
+    every group's gradient within 1e-4 of its max |g|
+    (``chip_smoke.check_small_pdra_step``, run from the repo root)."""
+    import chip_smoke
+    from esrnerf_tpu_torch.ops import kernels
+
+    n0 = dict(kernels.launches)
+    res = chip_smoke.check_small_pdra_step(dev)
+    assert res["overflow"] == 0.0 and res["emit_supp"] > 0.0
+    assert res["max_grad_err_rel"] <= 1e-4
+    for k in ("scan_fwd", "scan_bwd", "splat", "gather_weighted",
+              "gather_raw"):
+        assert kernels.launches[k] > n0[k], k
+
+
+def test_small_finetune_on_card_matches_cpu(dev):
+    """One small relighting fine-tune step on the card against the CPU, on
+    both paths (per-step march; slots from ``march_ray_slots``, equal to
+    the CPU's): the loss at rtol 1e-4 and the emo branch's gradients
+    within 1e-4 of their max (``chip_smoke.check_small_finetune``)."""
+    import chip_smoke
+    from esrnerf_tpu_torch.ops import kernels
+
+    n0 = dict(kernels.launches)
+    res = chip_smoke.check_small_finetune(dev)
+    for path in ("march", "cached"):
+        assert res[path]["overflow"] == 0.0
+        assert res[path]["max_grad_err_rel"] <= 1e-4
+    for k in ("scan_fwd", "splat", "gather_weighted", "gather_raw"):
+        assert kernels.launches[k] > n0[k], k

@@ -131,7 +131,8 @@ def _data_cfgs(root, extra=()):
                                                      root_dir=REPO)
 
 
-@pytest.mark.parametrize("phase", ["train", "test_nv"])
+@pytest.mark.parametrize("phase", ["train", "test_nv", "test_nvc",
+                                   "test_nvi", "test_nvic"])
 def test_dataset_arrays_match_reference(scene, phase):
     jroot, troot = scene
     jcfg, tcfg = _data_cfgs(jroot)
@@ -142,8 +143,10 @@ def test_dataset_arrays_match_reference(scene, phase):
         assert td.all_data.keys() == jd.all_data.keys()
         for k, v in jd.all_data.items():
             np.testing.assert_array_equal(td.all_data[k], v, err_msg=k)
-    with pytest.raises(NotImplementedError, match="relighting"):
-        TESRNeRF(tcfg, "test_nvc")
+    if phase.startswith("test_nv") and phase != "test_nv":
+        assert "em_masks" in td.all_data  # the relighting edits
+    with pytest.raises(ValueError, match="unknown phase"):
+        TESRNeRF(tcfg, "test_nvx")
 
 
 def test_batch_sampler_matches_reference(scene):
@@ -549,7 +552,8 @@ def test_run_main_end_to_end_on_cpu(run_dir, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trun.main(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="unknown app.cls"):
         trun.main(["-cn", os.path.join(REPO, "cfg/app/pdra.yaml"),
-                   "app.phase=train", "data.cls=x", "data.root=x",
-                   "data.scene=x", "system.device=cpu"])
+                   "app.phase=train", "app.cls=fine.Unregistered",
+                   "data.cls=x", "data.root=x", "data.scene=x",
+                   "system.device=cpu"])
