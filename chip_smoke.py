@@ -97,11 +97,34 @@ Phases, in order; any failure exits non-zero:
    metrics, coarse overflow 0, the eval files, the resume step, and the
    kernels launched in alphamask train (K-3), coarse train (K-1..K-4) and
    coarse test_nv (K-1, K-4); then one more alphamask and coarse step
-   each is captured and replayed as in phase 5.
+   each is captured and replayed as in phase 5;
+9. DTU: the two host decoders built in phase 2 (csrc/png_unfilter.cpp,
+   csrc/piz.cpp) on a 1200x1200 RGB PNG with rows of all five filter
+   types and an 800x800 half PIZ EXR written by the port's writer, each
+   read back bitwise, with their seconds beside the plain Python versions'
+   (the PNG's rows; the EXR's Huffman chunks); then a DTU-format scan
+   (data.synthetic.write_dtu_scene: scan 97, 49 views of 1200x1200, 70.6 M
+   training rays, the Chamfer assets) and the chain alphamask -> coarse ->
+   fine -> LTS through esrnerf_tpu_torch.run.main with
+   cfg/exp/dtu/97/*.yaml at the configs' widths, each stage finding the
+   previous checkpoint by path: 1,000, 60, 12 (the grid rescaled to 256^3
+   at step 6; phase 7's fine budgets and sharpness) and 6 steps (the
+   config's budgets), each ending with a test_nv eval (N_vis 1: two
+   1200x1200 renders), its mesh and, but for alphamask, the Chamfer
+   distance (mesh/CD). Per stage: the datasets' load s and the set-up s,
+   median step ms, device busy ms and launches per step (three more
+   steps, profiled and counted), peak memory, eval s per image, mesh s,
+   cd_s, mesh/CD, checkpoint s and bytes. Asserts finite metrics,
+   overflow 0 (coarse, fine, LTS primary and secondary), a finite mesh/CD
+   in coarse, fine and LTS, the eval files, and the kernels launched in
+   each stage's training (alphamask K-3; coarse K-1..K-4 weighted; fine
+   and LTS K-1..K-4).
 
-Prints one JSON line per phase, then the kernel table as one JSON object
+Prints one JSON line per phase (each with ``elapsed_s``, the seconds since
+the script started), then the kernel table as one JSON object
 (``launches``: the fine step's; ``launches_lts_step``,
-``launches_pdra_step``, ``launches_finetune_step``: those steps'),
+``launches_pdra_step``, ``launches_finetune_step``: those steps';
+``launches_dtu_step``: per step of each DTU stage),
 the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -148,7 +171,14 @@ KERNEL_SOURCES = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase line also gets the seconds since the
+    script started (``elapsed_s``), so the run's time shows by phase."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2203,18 +2233,21 @@ CHAIN_KERNELS = {
 
 
 def stage_step(app, stage):
-    """``run(i)``: one more train step of ``stage`` on the trainer's live
-    state (parameters, optimizer, sampler and schedule after its run),
-    through the stage's own step builder."""
+    """``run(i)``: one more train step of ``stage`` (alphamask, coarse,
+    fine or LTS) on the trainer's live state (parameters, optimizer, sampler
+    and schedule after its run), through the stage's own step builder."""
     from esrnerf_tpu_torch.apps.alphamask import (build_alphamask_train_step,
                                                   step_generator)
     from esrnerf_tpu_torch.apps.coarse import build_coarse_train_step
     from esrnerf_tpu_torch.apps.fine import build_fine_train_step
 
-    build = {"alphamask": build_alphamask_train_step,
-             "coarse": build_coarse_train_step,
-             "fine": build_fine_train_step}[stage]
-    step = build(app.renderer, app.opt, app.cfg, device=app.device)
+    if stage == "lts":
+        step = app._train_step()
+    else:
+        build = {"alphamask": build_alphamask_train_step,
+                 "coarse": build_coarse_train_step,
+                 "fine": build_fine_train_step}[stage]
+        step = build(app.renderer, app.opt, app.cfg, device=app.device)
     gen = step_generator(app.device, 1, app.global_step)
 
     def run(i):
@@ -2235,6 +2268,9 @@ def stage_step(app, stage):
                     float(app.weight_tv_density * app.tvs["sdf"]
                           / app.train_bs), gs < app.tv_dense_before)
             kw = {}
+            if stage == "lts":
+                app.renderer.s_val = args[0]
+                kw = {"generator": gen}
         app.params, app.opt_state, aux = step(app.params, app.opt_state,
                                               batch, *args, **kw)
         return aux
@@ -2438,6 +2474,212 @@ def chain_stages(device, work, device_line=None, wh=256, n_train=12,
     return out, captured
 
 
+# ------------------------------------------------------------- phase 9
+
+
+def check_decoders(work, png_wh=1200, exr_wh=800):
+    """The two host decoders on full-size images: a ``png_wh`` square RGB
+    PNG with rows of every filter type in turn, and an ``exr_wh`` square
+    half RGB EXR written with PIZ by the port's writer, each read back
+    bitwise; their seconds, and the plain Python versions' on the same PNG
+    rows and on one Huffman stream of the EXR's half-float bits (as many
+    symbols as the image has samples)."""
+    from esrnerf_tpu_torch.utils import exr, piz, png
+
+    yy, xx = np.mgrid[:png_wh, :png_wh] / png_wh
+    noise = np.random.default_rng(0).integers(0, 24, (png_wh, png_wh, 3))
+    img = (np.stack([np.sin(7 * xx) * yy, xx * yy, np.cos(5 * yy)], -1)
+           * 100 + 120 + noise).clip(0, 255).astype(np.uint8)
+    path = os.path.join(work, "filters.png")
+    types = np.arange(png_wh) % 5
+    png.write(path, img, filters=types)
+    raw = png._filter_rows(img.reshape(png_wh, png_wh * 3), 3, types)
+    png_bytes = os.path.getsize(path)
+    t = time.perf_counter()
+    got = png.read(path)
+    png_s = time.perf_counter() - t
+    if not np.array_equal(got, img):
+        raise AssertionError("the native PNG unfilter is not bitwise")
+    t = time.perf_counter()
+    plain = png._unfilter_plain(raw, png_wh, png_wh * 3, 3)
+    png_plain_s = time.perf_counter() - t
+    t = time.perf_counter()
+    native = png._unfilter(raw, png_wh, png_wh * 3, 3)
+    unfilter_s = time.perf_counter() - t
+    if not np.array_equal(plain, native):
+        raise AssertionError("the PNG unfilter disagrees with its plain "
+                             "version")
+
+    yy, xx = np.mgrid[:exr_wh, :exr_wh] / exr_wh
+    hdr = (np.stack([np.sin(6 * xx) * yy, xx * yy, np.cos(3 * yy)], -1)
+           * 2).astype(np.float16)
+    path = os.path.join(work, "piz.exr")
+    t = time.perf_counter()
+    exr.imwrite(path, hdr, half=True, compression="piz")
+    exr_write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = exr.imread(path)
+    exr_s = time.perf_counter() - t
+    if not np.array_equal(back[..., :3], hdr.astype(np.float32)):
+        raise AssertionError("the PIZ EXR did not read back bitwise")
+    sym = hdr.view(np.uint16).reshape(-1)
+    data = piz.huf_compress(sym)
+    t = time.perf_counter()
+    a = piz.huf_uncompress(data, sym.size)
+    huf_s = time.perf_counter() - t
+    t = time.perf_counter()
+    b = piz._huf_uncompress_plain(data, sym.size)
+    huf_plain_s = time.perf_counter() - t
+    if not (np.array_equal(a, sym) and np.array_equal(b, sym)):
+        raise AssertionError("the PIZ Huffman decode is not bitwise")
+    return {"png": {"wh": png_wh, "read_s": png_s,
+                    "unfilter_s": unfilter_s,
+                    "unfilter_plain_s": png_plain_s,
+                    "bytes": png_bytes},
+            "exr_piz": {"wh": exr_wh, "write_s": exr_write_s,
+                        "read_s": exr_s, "huf_s": huf_s,
+                        "huf_plain_s": huf_plain_s, "symbols": int(sym.size),
+                        "huf_bytes": len(data)}}
+
+
+# the DTU chain's kernels, by stage's train run
+DTU_KERNELS = {"alphamask": CHAIN_KERNELS["alphamask train"],
+               "coarse": CHAIN_KERNELS["coarse train"],
+               "fine": LTS_TRAIN_KERNELS, "lts": LTS_TRAIN_KERNELS}
+DTU_ITERS = {"alphamask": 1000, "coarse": 60, "fine": 12, "lts": 6}
+# fine: FINE_OVERRIDES' budgets and the trainer phase's sharpness, the grid
+# rescaled once to the config's 256^3 half way; LTS: phase 1 budgets of
+# both marches raised from the config's 256 and 96 a ray (the 49-view scan
+# overflowed at 432 and 96)
+DTU_EXTRA = {
+    "fine": [*FINE_OVERRIDES[4:], "app.trainer.s_start=200",
+             "app.trainer.pg_scale=[6]"],
+    "lts": ["app.model.points_budget_masked_per_ray=864",
+            "app.model.points_budget_masked_per_2ndray=256"],
+}
+
+
+def dtu_stages(device, work, device_line=None, n_views=49, wh=1200,
+               iters=None, extra=None, prof_steps=3):
+    """alphamask -> coarse -> fine -> LTS through ``esrnerf_tpu_torch.run
+    .main`` on a DTU-format scan (``write_dtu_scene``: ``n_views`` views of
+    ``wh`` x ``wh``, the Chamfer assets), each stage finding the previous
+    one's checkpoint by path, at the configs' widths unless ``extra``
+    (stage -> overrides) cuts them. Each stage trains ``iters[stage]``
+    steps and ends with a test_nv eval (``N_vis`` 1), its mesh and, but for
+    alphamask, ``mesh/CD``; then ``prof_steps`` more steps are profiled and
+    counted. Each stage's row is printed as a ``dtu`` line."""
+    import torch
+
+    from esrnerf_tpu_torch.data.synthetic import write_dtu_scene
+    from esrnerf_tpu_torch.ops import kernels
+
+    iters = {**DTU_ITERS, **(iters or {})}
+    extra = {**DTU_EXTRA, **(extra or {})}
+    t0 = time.perf_counter()
+    write_dtu_scene(os.path.join(work, "data"), scan=97, n_views=n_views,
+                    wh=wh)
+    scene = {"n_views": n_views, "wh": wh, "rays": n_views * wh * wh,
+             "write_s": time.perf_counter() - t0,
+             "bytes": sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, fs in os.walk(os.path.join(work, "data"))
+                          for f in fs)}
+    emit({"phase": "dtu_scene", **scene, "iters": iters, "extra": extra,
+          "device": device_line})
+
+    def args(stage):
+        n = iters[stage]
+        return ["-cn", os.path.join(REPO, f"cfg/exp/dtu/97/{stage}.yaml"),
+                "app.phase=train", f"data.root={work}/data",
+                f"log.root={work}/logs", "log.name=dtu", "log.offline=true",
+                "system.debug=true", "system.tqdm_iters=1",
+                f"system.device={device.type}", "app.trainer.N_vis=1",
+                f"app.trainer.n_iters={n}", f"app.trainer.vis_every={n}",
+                f"app.trainer.save_every={n}", *extra.get(stage, ())]
+
+    out, missing = [], []
+    for stage in ("alphamask", "coarse", "fine", "lts"):
+        app, launches, secs, peak = counted_run(device, args(stage))
+        n = iters[stage]
+        rows = _stage_rows(app)
+        train = [r for r in rows if "train/metric/srgb/MSE" in r]
+        if [r["step"] for r in train] != list(range(n)):
+            raise AssertionError(f"dtu {stage} steps logged: "
+                                 f"{[r['step'] for r in train]}")
+        # overflow 0, and every march keeps samples on every step (an empty
+        # march has no overflow either)
+        fracs = {"coarse": ("k1_frac", "k2_frac"),
+                 "fine": ("k1_frac", "k2_frac"),
+                 "lts": ("k1_frac", "k2_frac", "k1_frac_2nd",
+                         "k2_frac_2nd")}.get(stage, ())
+        seen = {k: [r[f"train/metric/etc/{k}"] for r in train]
+                for k in ("overflow",) + fracs if fracs}
+        if fracs and max(seen["overflow"]) != 0.0:
+            raise AssertionError(f"dtu {stage} march overflow: {seen}")
+        if any(min(seen[k]) <= 0.0 for k in fracs):
+            raise AssertionError(f"dtu {stage}: a march kept no sample on "
+                                 f"some step: {seen}")
+        ev = [r for r in rows if "test_nv/metric/srgb/PSNR" in r]
+        if len(ev) != 1:
+            raise AssertionError(f"dtu {stage}: {len(ev)} eval rows")
+        ev = {k.split("/metric/")[1]: v for k, v in ev[0].items()
+              if "/metric/" in k}
+        cd = ev.get("mesh/CD")
+        if stage != "alphamask" and not (cd is not None and np.isfinite(cd)):
+            raise AssertionError(f"dtu {stage}: mesh/CD {cd}")
+        _assert_eval_files(app, n - 1, mesh=stage != "alphamask")
+        missing += [f"{stage} {k}" for k in DTU_KERNELS[stage]
+                    if launches[k] == 0]
+        # synchronised steps but the first and the one after a rescale
+        skip = {0} | {int(k) + 1 for k in
+                      (app.cfg.app.trainer.get("pg_scale") or ())
+                      if stage == "fine"}
+        steps = [r["train/metric/etc/sec_per_step"] * 1e3 for r in train
+                 if r["step"] not in skip]
+        runner = stage_step(app, stage)
+        prof = profile_steps(device, runner, n=prof_steps)
+        kernels.reset_launches()
+        for i in range(prof_steps):
+            runner(i)
+        sync(device)
+        row = {
+            "stage": stage, "steps": n, "n_rays": int(app.train_bs),
+            "run_s": secs, "data_s": app.timings["data_s"],
+            "setup_s": app.timings["setup_s"],
+            "median_step_ms": float(np.median(steps)),
+            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+            "device_launches_per_step": prof["device_launches_per_step"],
+            "kernel_launches_per_step": {
+                k: v / prof_steps for k, v in kernels.launches.items() if v},
+            "run_launches": {k: v for k, v in launches.items() if v},
+            "peak_memory_gb": peak,
+            "eval_s_per_image": app.timings["eval_s_per_image"],
+            "mesh_s": app.timings.get("mesh_s"),
+            "mesh_verts": app.timings.get("mesh_verts"),
+            "cd_s": app.timings.get("cd_s"), "mesh/CD": cd,
+            "ckpt_s": app.timings["ckpt_s"],
+            "ckpt_bytes": app.timings["ckpt_bytes"],
+            "mse_first": train[0]["train/metric/srgb/MSE"],
+            "mse_last": train[-1]["train/metric/srgb/MSE"],
+            **{f"{k}_max": max(r.get(f"train/metric/etc/{k}", 0.0)
+                               for r in train)
+               for k in ("overflow", "k1_frac", "k2_frac", "k1_frac_2nd",
+                         "k2_frac_2nd")},
+            "test_nv": ev,
+            **{k: v for k, v in app.timings.items()
+               if k in ("count_views_s", "ray_filter_s", "rays_kept")},
+        }
+        out.append(row)
+        emit({"phase": "dtu", **row, "device": device_line})
+        del app, runner
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if missing and device.type == "cuda":
+        raise AssertionError(f"kernels not launched by the DTU chain: "
+                             f"{missing}")
+    return scene, out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2611,6 +2853,15 @@ def main() -> int:
                                  f"{sorted(seen)}")
     replay_launches(captured, device)
     del captured
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="esr_dtu_") as work:
+        emit({"phase": "decoders", **check_decoders(work), "device": smi})
+        _, dtu_rows = dtu_stages(device, work, smi)
+    for r in rows:
+        r["launches_dtu_step"] = {
+            d["stage"]: d["kernel_launches_per_step"].get(r["name"], 0)
+            for d in dtu_rows}
     torch.cuda.empty_cache()
 
     emit({"kernels": rows})

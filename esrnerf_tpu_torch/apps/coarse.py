@@ -404,10 +404,11 @@ class Coarse(AppClass):
         verts = verts * scale_mat[0, 0] + scale_mat[:3, 3][None]
         meshutil.export_ply(os.path.join(dirs["mesh"], "mesh.ply"), verts,
                             tris)
+        t_mesh = time.perf_counter()
         if getattr(self.test_dataset, "pcd", None) is not None:
             _, _, mean_cd = DTU_CD(verts, tris, *self.test_dataset.pcd)
             metrics["mesh/CD"] = [mean_cd]
-        t_mesh = time.perf_counter()
+            self.timings["cd_s"] = time.perf_counter() - t_mesh
 
         compact = {k: [x for x in v if x is not None]
                    for k, v in metrics.items()}

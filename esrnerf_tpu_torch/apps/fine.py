@@ -34,7 +34,8 @@ from esrnerf_tpu_torch.optim import Adam, CosineLR
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import mesh as meshutil
 from esrnerf_tpu_torch.utils.device import resolve_device
-from esrnerf_tpu_torch.utils.metrics import loss2psnr, rgb_lpips, rgb_ssim
+from esrnerf_tpu_torch.utils.metrics import (DTU_CD, loss2psnr, rgb_lpips,
+                                             rgb_ssim)
 
 
 def fine_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, *,
@@ -498,6 +499,11 @@ class Fine(AppClass):
         meshutil.export_ply(os.path.join(dirs["mesh"], "mesh.ply"), verts,
                             tris)
         t_mesh = time.perf_counter()
+        scn_metrics = {}
+        if getattr(self.test_dataset, "pcd", None) is not None:
+            _, _, scn_metrics["mesh/CD"] = DTU_CD(verts, tris,
+                                                  *self.test_dataset.pcd)
+            self.timings["cd_s"] = time.perf_counter() - t_mesh
 
         compact = {k: [x for x in v if x is not None]
                    for k, v in metrics.items()}
@@ -512,6 +518,7 @@ class Fine(AppClass):
         })
         self.log_eval(self.test_dataset.phase + "/", {
             **compact,
+            **{k: [v] for k, v in scn_metrics.items()},
             **{f"etc/{k}": [v] for k, v in self.timings.items()
                if not k.startswith("ckpt")},
         })

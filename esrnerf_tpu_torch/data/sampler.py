@@ -5,9 +5,11 @@ An epoch-free shuffled batcher over the preloaded ray pool, checkpointable
 via ``(batch_st, data_idxs)``. Shuffling uses an explicit
 ``np.random.Generator`` seeded like the JAX package's, so both give the
 same batches for a seed. The pool lives in host memory; ``sample()``
-returns numpy slices that the trainer copies to the device. Also the
-port's copy of ``RayGroupManager``, the two-pool sampler of the LTS and
-PDRA stages.
+returns numpy slices that the trainer copies to the device. Rows are
+gathered with ``np.take`` and ``np.compress``: the same rows as fancy
+indexing, several times faster on the tens of millions of rays of a DTU
+scan. Also the port's copy of ``RayGroupManager``, the two-pool sampler
+of the LTS and PDRA stages.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ class BatchSampler:
         self.data_idxs = (
             np.arange(len(data[keys[0]])) if data_idxs is None else np.asarray(data_idxs)
         )
-        self.data = {k: np.ascontiguousarray(data[k][self.data_idxs]) for k in keys}
+        self.data = {k: np.take(data[k], self.data_idxs, axis=0)
+                     for k in keys}
 
     @property
     def data_num(self) -> int:
@@ -47,13 +50,13 @@ class BatchSampler:
         order = self.rng.permutation(self.data_num)
         self.data_idxs = self.data_idxs[order]
         for k in self.keys:
-            self.data[k] = np.ascontiguousarray(self.data[k][order])
+            self.data[k] = np.take(self.data[k], order, axis=0)
         self.batch_st = 0
 
     def filter(self, mask: np.ndarray) -> None:
         mask = np.asarray(mask, dtype=bool)
         for k in self.keys:
-            self.data[k] = np.ascontiguousarray(self.data[k][mask])
+            self.data[k] = np.compress(mask, self.data[k], axis=0)
         self.data_idxs = self.data_idxs[mask]
 
     def sample(self) -> Dict[str, np.ndarray]:
@@ -104,10 +107,10 @@ class RayGroupManager:
             np.arange(0) if cert_data_idxs is None else np.asarray(cert_data_idxs)
         )
         self.uncert_data = {
-            k: np.ascontiguousarray(data[k][self.uncert_data_idxs]) for k in keys
+            k: np.take(data[k], self.uncert_data_idxs, axis=0) for k in keys
         }
         self.cert_data = {
-            k: np.ascontiguousarray(data[k][self.cert_data_idxs]) for k in keys
+            k: np.take(data[k], self.cert_data_idxs, axis=0) for k in keys
         }
 
     @property
@@ -122,14 +125,14 @@ class RayGroupManager:
         order = self.rng.permutation(self.uncert_data_num)
         self.uncert_data_idxs = self.uncert_data_idxs[order]
         for k in self.keys:
-            self.uncert_data[k] = np.ascontiguousarray(self.uncert_data[k][order])
+            self.uncert_data[k] = np.take(self.uncert_data[k], order, axis=0)
         self.uncert_batch_st = 0
 
     def shuffle_cert(self) -> None:
         order = self.rng.permutation(self.cert_data_num)
         self.cert_data_idxs = self.cert_data_idxs[order]
         for k in self.keys:
-            self.cert_data[k] = np.ascontiguousarray(self.cert_data[k][order])
+            self.cert_data[k] = np.take(self.cert_data[k], order, axis=0)
         self.cert_batch_st = 0
 
     def shuffle(self) -> None:
@@ -144,7 +147,8 @@ class RayGroupManager:
             self.cert_data[k] = np.ascontiguousarray(
                 np.concatenate([self.cert_data[k], self.uncert_data[k][nmask]], 0)
             )
-            self.uncert_data[k] = np.ascontiguousarray(self.uncert_data[k][mask])
+            self.uncert_data[k] = np.compress(mask, self.uncert_data[k],
+                                              axis=0)
         self.cert_data_idxs = np.concatenate(
             [self.cert_data_idxs, self.uncert_data_idxs[nmask]], 0
         )

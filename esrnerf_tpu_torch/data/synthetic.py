@@ -1,18 +1,22 @@
-"""Synthetic ESR-NeRF-format scene generator for tests and benchmarks.
+"""Synthetic scene generators for tests and benchmarks.
 
-The port's copy of ``write_scene`` from ``esrnerf_tpu/data/synthetic.py``:
-a blender-convention dataset of an emissive ball and a diffuse ball,
-rendered analytically, in the file layout the loader expects
+The port's copies of ``write_scene`` and ``write_dtu_scene`` from
+``esrnerf_tpu/data/synthetic.py``: an emissive ball and a diffuse ball,
+rendered analytically. ``write_scene`` writes a blender-convention
+ESR-NeRF dataset in the file layout its loader expects
 (``transforms/transforms_{phase}.json``, RGBA PNGs, emission masks, EXR
-HDR, per-light edit masks). It writes the same pixels as the JAX package's
-generator, through the port's own PNG and EXR writers. The DTU-format
-generator is not ported yet.
+HDR, per-light edit masks); ``write_dtu_scene`` writes a DTU scan
+(``cameras_sphere.npz``, image and mask PNGs, and the ObsMask, Plane and
+STL assets of the Chamfer-distance eval). Both write the same pixels,
+cameras and points as the JAX package's generators, through the port's
+own PNG, EXR and PLY writers (and scipy for the ``.mat`` files).
 """
 
 from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
@@ -196,4 +200,108 @@ def write_scene(
     write_transforms("test_nvc", frames_for("test", n_test, ["c_change"]))
     write_transforms("test_nvi", frames_for("test", n_test, ["i_change"]))
     write_transforms("test_nvic", frames_for("test", n_test, ["ic_change"]))
+    return root
+
+
+def _look_at_opencv(eye: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """camera-to-world with OpenCV convention (+z forward, +y down)."""
+    z = target - eye
+    z = z / np.linalg.norm(z)
+    up = np.array([0.0, 0.0, 1.0])
+    if abs(np.dot(up, z)) > 0.99:
+        up = np.array([0.0, 1.0, 0.0])
+    x = np.cross(z, up)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = x, y, z, eye
+    return m
+
+
+def write_dtu_scene(
+    root: str,
+    scan: int = 1,
+    n_views: int = 10,
+    wh: int = 48,
+    fov_x: float = 0.8,
+    chamfer_assets: bool = True,
+) -> str:
+    """Write a DTU-format scene (``cameras_sphere.npz`` + image/ + mask/ +
+    the ObsMask/Plane/STL Chamfer assets) of the two-ball scene, in the
+    layout ``data.dtu.DTU`` expects; returns ``root`` (pass as
+    ``data.root``, with ``data.scene=<scan>``). scale_mat is the identity,
+    so all Chamfer assets live in the normalised world space."""
+    from scipy.io import savemat
+
+    from esrnerf_tpu_torch.utils.mesh import export_ply
+
+    sdir = os.path.join(root, f"dtu_scan{scan}")
+    for d in ["image", "mask"]:
+        os.makedirs(os.path.join(sdir, d), exist_ok=True)
+    os.makedirs(os.path.join(root, "ObsMask"), exist_ok=True)
+    os.makedirs(os.path.join(root, "Points", "stl"), exist_ok=True)
+
+    f = wh / 2.0 / np.tan(fov_x / 2.0)
+    cx = cy = wh / 2.0 - 0.5
+    K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1]], np.float64)
+
+    def view(idx):
+        theta = 2 * np.pi * idx / n_views
+        phi = 0.45 + 0.3 * ((idx % 3) / 2.0)
+        eye = 2.8 * np.array(
+            [np.cos(theta) * np.cos(phi), np.sin(theta) * np.cos(phi),
+             np.sin(phi)]
+        )
+        c2w = _look_at_opencv(eye.astype(np.float32), np.zeros(3))
+        w2c = np.linalg.inv(c2w.astype(np.float64))
+        world_mat = np.eye(4)
+        world_mat[:3] = K @ w2c[:3]
+
+        # render via the blender-convention renderer: undo its flip
+        pose_blender = c2w @ np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+        rgb_lin, alpha, _ = _render(pose_blender, wh, fov_x, on=False)
+        png.write(os.path.join(sdir, "image", f"{idx:06d}.png"),
+                  (_srgb(rgb_lin) * 255).astype(np.uint8))
+        png.write(os.path.join(sdir, "mask", f"{idx:03d}.png"),
+                  np.repeat((alpha * 255).astype(np.uint8)[..., None], 3, -1))
+        return world_mat
+
+    # views render independently; numpy and zlib release the GIL
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        world_mats = list(pool.map(view, range(n_views)))
+    cams = {}
+    for idx, world_mat in enumerate(world_mats):
+        cams[f"world_mat_{idx}"] = world_mat
+        cams[f"scale_mat_{idx}"] = np.eye(4)
+    np.savez(os.path.join(sdir, "cameras_sphere.npz"), **cams)
+
+    if chamfer_assets:
+        # ObsMask: everything inside [-1,1]^3 observed; Res 0.05
+        res = 0.05
+        bb = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]])
+        dim = int(2.0 / res) + 1
+        savemat(
+            os.path.join(root, "ObsMask", f"ObsMask{scan}_10.mat"),
+            {"ObsMask": np.ones((dim, dim, dim), np.uint8), "BB": bb,
+             "Res": np.array([[res]])},
+        )
+        savemat(
+            os.path.join(root, "ObsMask", f"Plane{scan}.mat"),
+            {"P": np.array([[0.0], [0.0], [1.0], [10.0]])},
+        )
+
+        # GT point cloud: both sphere surfaces
+        def sphere_pts(c, r, n=4000):
+            rng = np.random.default_rng(scan)
+            v = rng.normal(size=(n, 3))
+            v /= np.linalg.norm(v, axis=-1, keepdims=True)
+            return c + r * v
+
+        pts = np.concatenate(
+            [sphere_pts(EMIT_CENTER, EMIT_R), sphere_pts(DIFF_CENTER, DIFF_R)]
+        ).astype(np.float32)
+        export_ply(
+            os.path.join(root, "Points", "stl", f"stl{scan:03d}_total.ply"),
+            pts, np.zeros((0, 3), np.int64),
+        )
     return root

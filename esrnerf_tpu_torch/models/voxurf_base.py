@@ -76,18 +76,15 @@ class MaskCache:
     max-pooled density, sampled with zero padding, thresholded in alpha
     space. ``occ_sup`` is a binarized, dilated, 1-padded superset of the
     exact test that one nearest tap per point can query
-    (:meth:`query_nearest`); ``occ64`` is that superset resampled onto a
-    padded 64^3 lattice."""
+    (:meth:`query_nearest`)."""
 
-    def __init__(self, density, xyz_min, xyz_max, act_shift, thres, occ_sup,
-                 occ64):
+    def __init__(self, density, xyz_min, xyz_max, act_shift, thres, occ_sup):
         self.density = density  # [X,Y,Z,1] max-pooled
         self.xyz_min = xyz_min
         self.xyz_max = xyz_max
         self.act_shift = act_shift
         self.thres = thres
         self.occ_sup = occ_sup  # [X+2,Y+2,Z+2] f32 0/1
-        self.occ64 = occ64  # [66,66,66]
 
     @property
     def device(self) -> torch.device:
@@ -142,21 +139,6 @@ def make_mask_cache(
         d_tau = float(np.log(np.expm1(y)) - act_shift)
         occ_sup = (gridops.max_pool_3d_same(padded[..., None], 3)[..., 0]
                    >= d_tau).to(torch.float32)
-    # conservative 64^3 resampling of occ_sup (see the reference)
-    X, Y, Z = pooled.shape[:3]
-    if max(X, Y, Z) > 254:
-        raise ValueError("mask-cache resolution exceeds the occ64 lattice")
-    LAT = 256
-
-    def lat_idx(n):
-        ll = (torch.arange(LAT, dtype=torch.float32, device=dev) + 0.5) \
-            / LAT * (n - 1)
-        return torch.clamp(torch.round(ll).to(torch.int64) + 1, 0, n + 1)
-
-    o = occ_sup[lat_idx(X)][:, lat_idx(Y)][:, :, lat_idx(Z)]
-    o = F.max_pool3d(o[None, None], 4, stride=4)[0, 0]
-    o = gridops.max_pool_3d_same(o[..., None], 3)[..., 0]
-    occ64 = F.pad(o, (1, 1, 1, 1, 1, 1))
     return MaskCache(
         density=pooled,
         xyz_min=torch.as_tensor(np.asarray(xyz_min, np.float32), device=dev),
@@ -164,8 +146,49 @@ def make_mask_cache(
         act_shift=act_shift,
         thres=float(thres),
         occ_sup=occ_sup,
-        occ64=occ64,
     )
+
+
+def resample_occ64(mask_cache: MaskCache, lo, hi) -> torch.Tensor:
+    """``[66,66,66]`` f32 0/1: the mask cache's ``occ_sup`` on the 1-padded
+    64^3 partition of the box ``[lo, hi]`` (a model's, which the band cull
+    of :meth:`VoxurfGeometry.band_occ64` taps), conservative for
+    :meth:`MaskCache.query_nearest`.
+
+    The reference resamples onto the partition of the mask cache's own box,
+    and so assumes the two boxes are one; a stage after coarse has the
+    coarse stage's tighter box. Per axis, the points of a 64th of ``[lo,
+    hi]`` round (``query_nearest``'s convention) to a contiguous range of
+    mask cells: with ``LAT`` box centres per axis, ``LAT`` a multiple of 64
+    large enough that one step moves the cell index by less than one, the
+    range of a block is that of its ``LAT / 64`` centres. The max over each
+    block's ranges, dilated by one block for the rounding at block edges,
+    is the result. With ``[lo, hi]`` the mask's box and a mask grid of at
+    most 254 a side (the reference's limit), ``LAT`` is 256 and the result
+    is the reference's ``occ64`` bit for bit."""
+    occ = mask_cache.occ_sup
+    mlo = mask_cache.xyz_min.cpu().numpy().astype(np.float64)
+    mhi = mask_cache.xyz_max.cpu().numpy().astype(np.float64)
+    lo = np.asarray(lo, np.float64)
+    hi = np.asarray(hi, np.float64)
+    for axis in range(3):
+        n = occ.shape[axis] - 2
+        span = (n - 1) * (hi[axis] - lo[axis]) / (mhi[axis] - mlo[axis])
+        lat = 64 * max(4, int(np.floor(span / 64)) + 1)
+        t = (np.arange(lat) + 0.5) / lat
+        ll = ((lo[axis] + t * (hi[axis] - lo[axis]) - mlo[axis])
+              / (mhi[axis] - mlo[axis]) * (n - 1))
+        cell = np.clip(np.round(ll).astype(np.int64) + 1, 0, n + 1)
+        cell = cell.reshape(64, lat // 64)
+        first = torch.as_tensor(cell[:, 0], device=occ.device)
+        last = torch.as_tensor(cell[:, -1], device=occ.device)
+        out = None
+        for k in range(int((cell[:, -1] - cell[:, 0]).max()) + 1):
+            v = occ.index_select(axis, torch.minimum(first + k, last))
+            out = v if out is None else torch.maximum(out, v)
+        occ = out
+    o = gridops.max_pool_3d_same(occ[..., None], 3)[..., 0]
+    return F.pad(o, (1, 1, 1, 1, 1, 1))
 
 
 class March(NamedTuple):
@@ -201,6 +224,8 @@ class VoxurfGeometry:
         self.device = mask_cache.device
         self.xyz_min_t = torch.as_tensor(self.xyz_min, device=self.device)
         self.xyz_max_t = torch.as_tensor(self.xyz_max, device=self.device)
+        # the mask cache's occupancy on this box's 64^3 partition
+        self.occ64 = resample_occ64(mask_cache, self.xyz_min, self.xyz_max)
 
         m = cfg.app.model
         self.stepsize = float(m["stepsize"])
@@ -318,9 +343,10 @@ class VoxurfGeometry:
 
     @torch.no_grad()
     def band_occ64(self, sdf_grid: torch.Tensor, s_val) -> torch.Tensor:
-        """``[66,66,66]`` f32 0/1: the mask cache's 64^3 occupancy AND the
-        SDF surface band ``|sdf| <= surf_band_factor / s_val``, on a
-        1-padded 64^3 world partition, for one nearest tap per sample.
+        """``[66,66,66]`` f32 0/1: the mask cache's 64^3 occupancy on this
+        box (:func:`resample_occ64`) AND the SDF surface band ``|sdf| <=
+        surf_band_factor / s_val``, on a 1-padded 64^3 world partition,
+        for one nearest tap per sample.
 
         Conservative: trilinear values inside a cell lie between its corner
         values, so a block passes iff the range of the corners it covers
@@ -357,7 +383,7 @@ class VoxurfGeometry:
         band = float(np.float32(self.surf_band_factor) / np.float32(s_val))
         ok = ((mn <= band) & (mx >= -band)).to(torch.float32)
         ok = gridops.max_pool_3d_same(ok[..., None], 3)[..., 0]
-        return F.pad(ok, (1, 1, 1, 1, 1, 1)) * self.mask_cache.occ64
+        return F.pad(ok, (1, 1, 1, 1, 1, 1)) * self.occ64
 
     def query_nearest64(self, occ: torch.Tensor, xyz: torch.Tensor):
         """Box tap on a ``[66,66,66]`` 1-padded 64^3 world-partition mask

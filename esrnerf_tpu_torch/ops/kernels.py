@@ -2,8 +2,10 @@
 
 Each CUDA source under ``esrnerf_tpu_torch/csrc/`` is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library with a plain C interface and
-loaded with :mod:`ctypes`; the host-code marching-tetrahedra mesher
-(``marching.cpp``) is compiled by the host C++ compiler the same way.
+loaded with :mod:`ctypes`; the host-code libraries (the marching-tetrahedra
+mesher ``marching.cpp``, the PNG row unfilter ``png_unfilter.cpp`` and the
+PIZ Huffman decoder ``piz.cpp``) are compiled by the host C++ compiler the
+same way.
 Building happens at first use (or through :func:`build`), one compiler
 process per source, all started together, into the git-ignored
 ``esrnerf_tpu_torch/build/``. A library's file name carries a hash of its
@@ -35,7 +37,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = {"scan": "scan.cu", "splat": "splat.cu", "gather": "gather.cu",
            "gather_bench": "gather_bench.cu"}
 # host-code libraries (no CUDA), built by the host C++ compiler
-HOST_SOURCES = {"marching": "marching.cpp"}
+HOST_SOURCES = {"marching": "marching.cpp", "png_unfilter": "png_unfilter.cpp",
+                "piz": "piz.cpp"}
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -83,6 +86,13 @@ _HOST_SIGNATURES = {
         "mt_copy": ([_vp, _F_P, ctypes.POINTER(_I64)], None),
         "mt_free": ([_vp], None),
     },
+    "png_unfilter": {
+        "esr_png_unfilter": ([_vp, _I64, _I64, _i, _vp], _I64),
+    },
+    "piz": {
+        "piz_huf_decode": ([ctypes.c_char_p, _I64,
+                            ctypes.POINTER(ctypes.c_uint16), _I64], _i),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -111,7 +121,7 @@ def _cxx() -> str:
         if c:
             return c
     raise RuntimeError("no host C++ compiler (g++ or c++) found to build "
-                       "esrnerf_tpu_torch/csrc/marching.cpp")
+                       "the host libraries of esrnerf_tpu_torch/csrc")
 
 
 def _source(name: str) -> str:

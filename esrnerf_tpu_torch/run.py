@@ -12,7 +12,18 @@ with a copy of the port's package, and a training run resumes from
 alphamask's ``last.ckpt``, fine finds coarse's, LTS finds fine's and PDRA
 finds LTS's by path, so they chain without ``app.trainer.ckpt``. PDRA's
 eval phases are ``test_nv`` and the relighting phases ``test_nvc``,
-``test_nvi`` and ``test_nvic``.
+``test_nvi`` and ``test_nvic``. Both dataset families are ported
+(``data.cls`` ``esrnerf.ESRNeRF`` and ``dtu.DTU``), so a DTU scan chains
+the same way:
+
+    for s in alphamask coarse fine lts; do
+        python -m esrnerf_tpu_torch.run -cn cfg/exp/dtu/97/$s.yaml \
+            app.phase=train data.root=<root> log.name=<run>
+    done
+
+where ``<root>`` holds ``dtu_scan97/`` and the Chamfer assets (``ObsMask/``,
+``Points/stl/``; ``data.synthetic.write_dtu_scene`` writes such a scene);
+coarse, fine and LTS then log ``mesh/CD`` with their evals.
 ``system.device=cpu`` runs on the CPU (the plain PyTorch versions of the
 kernels); any other value, including the configs' ``tpu`` or none, means
 the GPU, and the run raises when CUDA is not available.
@@ -59,8 +70,8 @@ def _snapshot_code(log_dir: str) -> None:
 
 def main(argv=None):
     """Run one stage; returns the stage object (its ``timings``, with the
-    data and model set-up's ``setup_s``, and its model stay readable after
-    the run)."""
+    datasets' load time ``data_s`` and the data and model set-up's
+    ``setup_s``, and its model stay readable after the run)."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-cn", "--config-name", required=True,
                         help="path to a composed YAML config")
@@ -87,6 +98,7 @@ def main(argv=None):
     method = import_class(cls_path)(cfg)
     t0 = time.perf_counter()
     method.load_dataset()
+    method.timings["data_s"] = time.perf_counter() - t0
     method.load_model()
     method.timings["setup_s"] = time.perf_counter() - t0
     method.process()

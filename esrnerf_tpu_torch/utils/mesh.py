@@ -3,7 +3,8 @@
 Port of ``esrnerf_tpu/utils/mesh.py``: the scalar field is sampled on the
 model's device (:func:`extract_fields`), its isosurface is extracted by
 marching tetrahedra (:func:`marching_cubes`) and written as a binary PLY
-(:func:`export_ply`). A field on the CPU takes the vectorised numpy
+(:func:`export_ply`); :func:`load_ply` reads a PLY's vertices back (the
+DTU point clouds). A field on the CPU takes the vectorised numpy
 marching tetrahedra, the plain version; a field on the card is copied to
 the host once and meshed by the C++ extractor ``csrc/marching.cpp``, built
 by :mod:`esrnerf_tpu_torch.ops.kernels`. If that build fails the call
@@ -186,3 +187,44 @@ def export_ply(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
         f.write(header.encode())
         f.write(vertices.astype("<f4").tobytes())
         f.write(face_rec.tobytes())
+
+
+def load_ply(path: str):
+    """Vertices of a binary or ascii PLY as ``(verts [V, 3] f32, faces)``;
+    faces come back empty (the DTU STL point clouds have none)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    header = data[:end].decode("ascii", "replace").splitlines()
+    n_vert = 0
+    props: list = []
+    fmt = "binary_little_endian"
+    cur = None
+    for line in header:
+        parts = line.split()
+        if not parts:
+            continue
+        if parts[0] == "format":
+            fmt = parts[1]
+        elif parts[0] == "element":
+            cur = parts[1]
+            if cur == "vertex":
+                n_vert = int(parts[2])
+        elif parts[0] == "property" and cur == "vertex" and parts[1] != "list":
+            props.append((parts[2], parts[1]))
+
+    type_map = {"float": "<f4", "float32": "<f4", "double": "<f8",
+                "uchar": "u1", "uint8": "u1", "int": "<i4", "short": "<i2",
+                "ushort": "<u2"}
+    names = [p[0] for p in props]
+    if fmt.startswith("ascii"):
+        body = data[end:].decode().split()
+        arr = np.array(body[: n_vert * len(props)], np.float64).reshape(
+            n_vert, len(props))
+        verts = arr[:, [names.index("x"), names.index("y"), names.index("z")]]
+        return verts.astype(np.float32), np.zeros((0, 3), np.int64)
+
+    dtype = np.dtype([(name, type_map[t]) for name, t in props])
+    arr = np.frombuffer(data, dtype=dtype, count=n_vert, offset=end)
+    verts = np.stack([arr["x"], arr["y"], arr["z"]], -1).astype(np.float32)
+    return verts, np.zeros((0, 3), np.int64)

@@ -4,8 +4,8 @@ and the DTU Chamfer-distance protocol.
 Port of ``esrnerf_tpu/utils/metrics.py``. Meshes are plain ``(vertices,
 faces)`` numpy arrays. LPIPS resolves its scorer in the JAX package's
 order (a TorchScript bundle, the ``lpips`` package, then the deterministic
-random-feature fallback) and runs on the CPU. ``DTU_CD`` imports sklearn
-only when called (DTU scenes only).
+random-feature fallback) and runs on the CPU. ``DTU_CD`` takes its
+KD-trees from scipy, not sklearn.
 """
 
 from __future__ import annotations
@@ -204,6 +204,51 @@ def _sample_tri_batch(n1, n2, v1, v2, tri_vert0, thresh):
     return pts
 
 
+def radius_downsample_mask(pts: np.ndarray, thresh: float,
+                           window: int = 1 << 16,
+                           budget: int = 1 << 12) -> np.ndarray:
+    """Keep mask of the Chamfer protocol's downsampling: walk ``pts`` in
+    order; a point still kept drops every other point within ``thresh``
+    (distance <= ``thresh``).
+
+    The balls come from a KD-tree in threaded batches: the next points
+    still kept (looking at most ``window`` points ahead), as many as keep
+    about ``budget`` indices in flight by the ball sizes seen so far and
+    at most twice as many as the last batch used. A point of a batch that
+    an earlier one drops skips its ball, so the mask
+    is the one-ball-at-a-time walk's bit for bit; a scene whose balls hold
+    a large share of the points asks for few balls, one whose balls are
+    small (a real scan in millimetres) asks for them in large batches."""
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(pts)
+    n = pts.shape[0]
+    mask = np.ones(n, dtype=np.bool_)
+    s, q = 0, 1
+    while s < n:
+        cand = s + np.flatnonzero(mask[s:s + window])
+        if cand.size == 0:
+            s += window
+            continue
+        idx = cand[:q]
+        # threads pay off only on large batches (each call starts its own)
+        balls = tree.query_ball_point(pts[idx], r=thresh,
+                                      workers=-1 if idx.size >= 256 else 1)
+        hits = used = 0
+        for curr, ball in zip(idx, balls):
+            hits += len(ball)
+            if mask[curr]:
+                used += 1
+                mask[ball] = 0
+                mask[curr] = 1
+        s = int(idx[-1]) + 1
+        # at most twice the balls the last batch used: where balls are
+        # large, most of a batch's later points fall in its earlier balls
+        q = int(np.clip(min(budget * idx.size // max(hits, 1), 2 * used),
+                        1, window))
+    return mask
+
+
 def DTU_CD(
     vertices: np.ndarray,
     faces: np.ndarray,
@@ -220,9 +265,17 @@ def DTU_CD(
     mesh→pcd surface sampling, KD-tree radius downsample, ObsMask +
     ground-plane filtering, then symmetric nearest-neighbor means.
 
+    The downsampling keeps the reference's rule (walk the shuffled points
+    in order; a point still kept drops every other point within
+    ``thresh``) but asks a KD-tree (scipy's ``cKDTree``; both it and
+    sklearn's include points at exactly ``thresh``) for balls in bounded
+    batches, and only for points still kept when a batch starts
+    (:func:`radius_downsample_mask`): the same mask as querying every ball
+    up front, which on a dense mesh returns 10^8 indices or more.
+
     Returns (mean_d2s, mean_s2d, overall).
     """
-    import sklearn.neighbors as skln
+    from scipy.spatial import cKDTree
 
     tri_vert = vertices[faces]
     v1 = tri_vert[:, 1] - tri_vert[:, 0]
@@ -244,19 +297,7 @@ def DTU_CD(
     rng = np.random.default_rng(0)
     rng.shuffle(data_pcd, axis=0)
 
-    nn_engine = skln.NearestNeighbors(
-        n_neighbors=1, radius=thresh, algorithm="kd_tree", n_jobs=-1
-    )
-    nn_engine.fit(data_pcd)
-    rnn_idxs = nn_engine.radius_neighbors(
-        data_pcd, radius=thresh, return_distance=False
-    )
-    mask = np.ones(data_pcd.shape[0], dtype=np.bool_)
-    for curr, idxs in enumerate(rnn_idxs):
-        if mask[curr]:
-            mask[idxs] = 0
-            mask[curr] = 1
-    data_down = data_pcd[mask]
+    data_down = data_pcd[radius_downsample_mask(data_pcd, thresh)]
 
     BB = BB.astype(np.float32)
     inbound = (
@@ -274,16 +315,14 @@ def DTU_CD(
     ].astype(np.bool_)
     data_in_obs = data_in[grid_inbound][in_obs]
 
-    nn_engine.fit(stl)
-    dist_d2s, _ = nn_engine.kneighbors(data_in_obs, n_neighbors=1)
+    dist_d2s, _ = cKDTree(stl).query(data_in_obs, k=1)
     mean_d2s = float(dist_d2s[dist_d2s < max_dist].mean())
 
     stl_hom = np.concatenate([stl, np.ones_like(stl[:, :1])], -1)
     above = (ground_plane.reshape((1, 4)) * stl_hom).sum(-1) > 0
     stl_above = stl[above]
 
-    nn_engine.fit(data_in)
-    dist_s2d, _ = nn_engine.kneighbors(stl_above, n_neighbors=1)
+    dist_s2d, _ = cKDTree(data_in).query(stl_above, k=1)
     mean_s2d = float(dist_s2d[dist_s2d < max_dist].mean())
 
     return mean_d2s, mean_s2d, (mean_d2s + mean_s2d) / 2

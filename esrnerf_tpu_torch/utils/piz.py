@@ -1,4 +1,5 @@
-"""PIZ codec for the OpenEXR reader/writer (pure numpy + Python).
+"""PIZ codec for the OpenEXR reader/writer (numpy, and C++ for the Huffman
+decode).
 
 The port's copy of the numpy path of ``esrnerf_tpu/utils/piz.py``. PIZ is
 OpenEXR's default production compression (wavelet + Huffman over 16-bit
@@ -12,14 +13,19 @@ scheme follows the public OpenEXR format documentation:
 - canonical Huffman coding with 6-bit packed code lengths, zero-run
   escapes, and the run-length pseudo-symbol (``ImfHuf`` semantics)
 
-The wavelet and LUT stages are vectorized numpy; the Huffman decode is a
-Python bit loop (the JAX package's C++ decoder is not ported yet, so a
-large PIZ image takes seconds to read). The synthetic scenes are written
-with ZIP compression and never reach this module.
+The wavelet and LUT stages are vectorized numpy. The Huffman decode is a
+bit-serial loop: :func:`huf_uncompress` runs it in the host library
+``csrc/piz.cpp`` (the port's copy of the JAX package's native decoder,
+built by :mod:`esrnerf_tpu_torch.ops.kernels` at first use) and raises if
+that library cannot be built or loaded; the Python loop
+(:func:`_huf_uncompress_plain`, tens of seconds for an 800x800 image)
+stays as the plain version for the tests. The synthetic scenes are
+written with ZIP compression and never reach this module.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 from typing import List, Tuple
 
@@ -276,6 +282,9 @@ class _BitWriter:
         while self.nbits >= 8:
             self.nbits -= 8
             self.out.append((self.acc >> self.nbits) & 0xFF)
+        # keep only the bits not yet written: an unbounded accumulator makes
+        # every shift cost its length, and an image's encode quadratic
+        self.acc &= (1 << self.nbits) - 1
 
     def flush(self) -> int:
         total = len(self.out) * 8 + self.nbits
@@ -473,6 +482,7 @@ def _huf_decode(hcode, short_len, short_lit, longs, data, pos, nbits,
             else:
                 out[oi] = sym
                 oi += 1
+        c &= (1 << lc) - 1  # only the unread bits (keeps the shifts short)
     # flush remaining whole-bit tail
     tail = (8 - nbits) & 7
     c >>= tail
@@ -513,14 +523,36 @@ def huf_compress(data: np.ndarray) -> bytes:
     return head + table + bits
 
 
-def huf_uncompress(data: bytes, n_out: int) -> np.ndarray:
-    if n_out == 0:
-        return np.empty(0, np.uint16)
+def _huf_header(data: bytes):
     if len(data) < 20:
         raise ValueError("PIZ: truncated huffman header")
     im, iM, table_len, nbits, _ = struct.unpack_from("<5I", data, 0)
     if not (0 <= im < iM < HUF_ENCSIZE):
         raise ValueError("PIZ: bad huffman header")
+    return im, iM, nbits
+
+
+def huf_uncompress(data: bytes, n_out: int) -> np.ndarray:
+    """``hufUncompress`` of ``n_out`` symbols by the host library."""
+    from esrnerf_tpu_torch.ops import kernels
+
+    if n_out == 0:
+        return np.empty(0, np.uint16)
+    _huf_header(data)
+    out = np.empty(n_out, np.uint16)
+    rc = kernels.lib("piz").piz_huf_decode(
+        bytes(data), len(data),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), n_out)
+    if rc != 0:
+        raise ValueError(f"PIZ: native huffman decode failed rc={rc}")
+    return out
+
+
+def _huf_uncompress_plain(data: bytes, n_out: int) -> np.ndarray:
+    """``hufUncompress`` as a Python bit loop, the plain version."""
+    if n_out == 0:
+        return np.empty(0, np.uint16)
+    im, iM, nbits = _huf_header(data)
     hcode, data_pos = _unpack_enc_table(data, 20, im, iM)
     short_len, short_lit, longs = _build_dec_table(hcode, im, iM)
     return _huf_decode(hcode, short_len, short_lit, longs, data, data_pos,

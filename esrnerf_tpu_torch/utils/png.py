@@ -3,11 +3,20 @@
 The datasets store images as PNGs, and the trainers write their renders as
 PNGs; this module needs neither PIL nor OpenCV. It reads non-interlaced
 8-bit grey, grey+alpha, RGB and RGBA images with any of the five row
-filters, and writes grey, RGB or RGBA with filter 0 (none).
+filters, and writes them with filter 0 (none) or the row filters asked
+for.
+
+The row filters are undone by the host library ``csrc/png_unfilter.cpp``
+(built by :mod:`esrnerf_tpu_torch.ops.kernels` at first use): the average
+and Paeth filters, which photographs mostly use, are sequential along a
+row, and the plain Python version (:func:`_unfilter_plain`, kept for the
+tests) takes seconds per megapixel. If the library cannot be built or
+loaded, :func:`read` raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
@@ -22,20 +31,42 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write(path: str, img: np.ndarray, level: int = 6) -> None:
-    """Write a uint8 ``[H, W]``, ``[H, W, 1]``, ``[H, W, 3]`` or
-    ``[H, W, 4]`` image."""
+def _filter_rows(x: np.ndarray, bpp: int, types) -> np.ndarray:
+    """``x [H, stride]`` uint8 filtered row by row, row ``y`` with type
+    ``types[y]`` (0 none, 1 sub, 2 up, 3 average, 4 Paeth): the raw rows
+    ``[H, 1 + stride]``, filter byte first."""
+    H, stride = x.shape
+    x = x.astype(np.int32)
+    up = np.vstack([np.zeros((1, stride), np.int32), x[:-1]])
+    pad = np.zeros((H, bpp), np.int32)
+    left = np.hstack([pad, x[:, :-bpp]])
+    upleft = np.hstack([pad, up[:, :-bpp]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    types = np.asarray(types, np.int64)
+    pred = np.choose(types[:, None], [np.zeros_like(x), left, up,
+                                      (left + up) >> 1, paeth])
+    return np.hstack([types[:, None], (x - pred) & 0xFF]).astype(np.uint8)
+
+
+def write(path: str, img: np.ndarray, level: int = 6, filters=None) -> None:
+    """Write a uint8 ``[H, W]`` or ``[H, W, C]`` image, C 1-4. Every row
+    takes filter 0 (none) unless ``filters`` gives each row's type (0 none,
+    1 sub, 2 up, 3 average, 4 Paeth)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"png.write takes uint8 images, got {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     H, W, C = img.shape
-    ctype = {1: 0, 3: 2, 4: 6}.get(C)
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}.get(C)
     if ctype is None:
-        raise ValueError(f"png.write: {C} channels (want 1, 3 or 4)")
-    rows = np.concatenate([np.zeros((H, 1), np.uint8),
-                           np.ascontiguousarray(img).reshape(H, W * C)], 1)
+        raise ValueError(f"png.write: {C} channels (want 1 to 4)")
+    x = np.ascontiguousarray(img).reshape(H, W * C)
+    rows = (np.concatenate([np.zeros((H, 1), np.uint8), x], 1)
+            if filters is None else _filter_rows(x, C, filters))
     ihdr = struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIG + _chunk(b"IHDR", ihdr)
@@ -51,8 +82,9 @@ def _paeth(a: int, b: int, c: int) -> int:
     return b if pb <= pc else c
 
 
-def _unfilter(raw: np.ndarray, H: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters of ``raw [H, 1 + stride]``."""
+def _unfilter_plain(raw: np.ndarray, H: int, stride: int,
+                    bpp: int) -> np.ndarray:
+    """Undo the per-row filters of ``raw [H, 1 + stride]`` in Python."""
     out = np.zeros((H, stride), np.uint8)
     prev = np.zeros(stride, np.int32)
     for y in range(H):
@@ -79,6 +111,25 @@ def _unfilter(raw: np.ndarray, H: int, stride: int, bpp: int) -> np.ndarray:
             raise ValueError(f"PNG: bad filter type {ftype} in row {y}")
         out[y] = cur
         prev = cur
+    return out
+
+
+def _unfilter(raw: np.ndarray, H: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters of ``raw [H, 1 + stride]`` with the host
+    library; the same bytes as :func:`_unfilter_plain`."""
+    from esrnerf_tpu_torch.ops import kernels
+
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if raw.shape != (H, stride + 1) or not 1 <= bpp <= 4:
+        raise ValueError(f"PNG: {raw.shape} bytes of rows for {H} rows of "
+                         f"{stride} at {bpp} bytes a pixel")
+    out = np.empty((H, stride), np.uint8)
+    bad = kernels.lib("png_unfilter").esr_png_unfilter(
+        raw.ctypes.data_as(ctypes.c_void_p), H, stride, bpp,
+        out.ctypes.data_as(ctypes.c_void_p))
+    if bad:
+        raise ValueError(f"PNG: bad filter type {int(raw[bad - 1, 0])} in "
+                         f"row {bad - 1}")
     return out
 
 

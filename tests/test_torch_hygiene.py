@@ -4,6 +4,8 @@ kernels build from sources in the repo, and importing it builds nothing."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -57,7 +59,19 @@ def test_kernel_sources_present_and_nothing_built_at_import():
     for src in (*kernels.SOURCES.values(), *kernels.HOST_SOURCES.values(),
                 "common.cuh"):
         assert os.path.exists(os.path.join(kernels.CSRC, src)), src
-    assert not kernels._libs  # nothing loaded by importing the port
+    # nothing loaded by importing the port: in a fresh interpreter, since
+    # an earlier test in this process may have read a PNG (which loads the
+    # unfilter library)
+    code = ("import importlib, pkgutil, sys; sys.path.insert(0, %r); "
+            "import esrnerf_tpu_torch as p; "
+            "[importlib.import_module(m.name) for m in "
+            "pkgutil.walk_packages(p.__path__, 'esrnerf_tpu_torch.')]; "
+            "from esrnerf_tpu_torch.ops import kernels; "
+            "print(len(kernels._libs))" % REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split()[-1] == "0"
 
 
 def test_cpu_tensors_take_plain_versions_and_launchers_refuse_them():
@@ -76,3 +90,52 @@ def test_cpu_tensors_take_plain_versions_and_launchers_refuse_them():
         kernels.scan_fwd(torch.zeros((4, 3)), 1e-3)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.gather_raw(torch.zeros((5, 1)), base, (0,))
+
+
+# the only way the port reaches these: _need() in the resize paths
+_LAZY_ONLY = ("sklearn", "cv2", "PIL")
+_RESIZERS = ("_imresize", "_hdr_resize")
+
+
+def test_port_imports_no_pil_opencv_or_sklearn():
+    """No module of the port imports sklearn, OpenCV or PIL, at module level
+    or inside a function; the only way to them is ``_need("PIL.Image" |
+    "cv2", ...)`` inside a resize function (``data.resize`` other than
+    1.0), and ``importlib`` is called only by ``_need``."""
+    bad, needs = [], []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        funcs = [n for n in ast.walk(tree)
+                 if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+        owner = {}  # node -> innermost enclosing function (walked last)
+        for fn in funcs:
+            for n in ast.walk(fn):
+                owner[id(n)] = fn.name
+        for node in ast.walk(tree):
+            mods = []
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            elif isinstance(node, ast.Call):
+                name = getattr(node.func, "id", None) or getattr(
+                    node.func, "attr", None)
+                arg = (node.args[0].value if node.args and isinstance(
+                    node.args[0], ast.Constant) else None)
+                if name == "_need":
+                    needs.append((rel, owner.get(id(node)), arg))
+                elif name == "import_module" and owner.get(id(node)) != \
+                        "_need":
+                    bad.append(f"{rel}:{node.lineno} import_module outside "
+                               f"_need")
+                elif name == "__import__" and isinstance(arg, str):
+                    mods = [arg]
+            bad += [f"{rel}:{node.lineno} {m}" for m in mods
+                    if m.split(".")[0] in _LAZY_ONLY]
+    assert not bad, bad
+    assert needs, "the resize paths' lazy imports were not found"
+    for rel, fn, mod in needs:
+        assert fn in _RESIZERS and mod in ("PIL.Image", "cv2"), (rel, fn,
+                                                                 mod)

@@ -56,6 +56,37 @@ def test_band_occ64_and_query_nearest64_bitwise(shape, s_val):
         np.asarray(jg.query_nearest64(jnp.asarray(want), jnp.asarray(pts))))
 
 
+@pytest.mark.parametrize("box,ref_misses", [
+    (((-0.95, -0.3, -0.2), (0.6, 0.95, 0.9)), True),  # inside the mask's box
+    (((-1.3, -0.2, -1.1), (0.3, 1.4, 0.9)), True),    # past it on some faces
+    (((-4.0, -3.0, -2.5), (3.5, 4.0, 3.0)), False),   # ~4x the mask's box
+])
+def test_occ64_on_a_model_box_is_a_superset_of_the_mask_tap(box, ref_misses):
+    """A stage after coarse has the coarse stage's box, not the mask
+    cache's. The geometry's ``occ64`` (``resample_occ64`` on its own box)
+    holds every point that the mask cache's nearest tap holds, on points
+    over the box (a march samples inside it); the reference's ``occ64``,
+    resampled on the mask's box and tapped on the model's partition,
+    misses some where the model's box is the smaller."""
+    lo, hi = (np.asarray(v, np.float32) for v in box)
+    jcfg, tcfg = load_both_cfgs(BAND + ["app.model.phase1_block=8"])
+    dens = ball_density()
+    mc = tvb.make_mask_cache(dens, [-1, -1, -1], [1, 1, 1], 1e-6, 1e-3, 3,
+                             device="cpu")
+    tg = tvb.VoxurfGeometry(tcfg, 0.5, 4.0, lo, hi, mc)
+    jmc = jvb.make_mask_cache(dens, [-1, -1, -1], [1, 1, 1], 1e-6, 1e-3, 3)
+    pts = np.random.default_rng(2).uniform(lo, hi, (200000, 3))
+    pts = torch.as_tensor(pts.astype(np.float32))
+    want = mc.query_nearest(pts).numpy()
+    assert 0 < want.sum() < len(want)
+    got = tg.query_nearest64(tg.occ64, pts).numpy()
+    assert not (want & ~got).any()
+    assert got.sum() < 4 * want.sum()  # a cull still
+    ref = tg.query_nearest64(torch.as_tensor(np.asarray(jmc.occ64)),
+                             pts).numpy()
+    assert (want & ~ref).any() == ref_misses
+
+
 def _secondary_rays(n, seed):
     """Rays leaving points near the SDF's surface in random directions,
     as the LTS secondary march sees them."""

@@ -162,8 +162,10 @@ def _step_args(tv_dense):
     return S_VAL, 1.0, 0.05, 0.01 * 0.1 / 64, tv_dense
 
 
-def _jax_grads(setup, tv_dense, key):
-    jcfg, _, jm, _, params, b = setup
+def jax_lts_grads(jcfg, jm, params, b, args, key):
+    """One JAX LTS step body on ``params`` and batch ``b`` with the step
+    arguments ``args`` (s_val, tv, smooth_grad_tv, sdf_tv_w, tv_dense):
+    ``(grads, aux)``."""
     f = JLTS.__new__(JLTS)  # the step body only
     f.cfg, f.renderer, f.opt = jcfg, jm, _GradsOut()
     tr = jcfg.app.trainer
@@ -172,8 +174,9 @@ def _jax_grads(setup, tv_dense, key):
     f.weight_lts, f.weight_normal_smooth = tr.weight_lts, \
         tr.weight_normal_smooth
     f.normal_eps, f.emit_eps = tr.normal_eps, tr.emit_eps
-    f.white_bg, f.train_bs = 1.0, len(b["rgbs"])
-    s_val, tv, sg, sdf_w, dense = _step_args(tv_dense)
+    f.white_bg = float(jcfg.data["white_bg"])
+    f.train_bs = len(b["rgbs"])
+    s_val, tv, sg, sdf_w, dense = args
     grads, _, aux = f._build_train_step()(
         jax.tree.map(jnp.asarray, params), None,
         {k: jnp.asarray(v) for k, v in b.items()}, jnp.float32(s_val),
@@ -183,9 +186,9 @@ def _jax_grads(setup, tv_dense, key):
     return jax.tree.map(np.asarray, grads), [float(a) for a in aux]
 
 
-def _port_grads(setup, tv_dense, draws):
-    _, tcfg, _, tm, params, b = setup
-    s_val, tv, sg, sdf_w, dense = _step_args(tv_dense)
+def port_lts_grads(tcfg, tm, params, b, args, draws):
+    """The port's LTS step on the same inputs, fed the JAX step's draws."""
+    s_val, tv, sg, sdf_w, dense = args
     step = build_lts_train_step(tm, _GradsOut(), tcfg, device="cpu")
     out, _, aux = step(params_from_jax(params, device="cpu"), None,
                        {k: torch.as_tensor(v) for k, v in b.items()}, s_val,
@@ -194,12 +197,10 @@ def _port_grads(setup, tv_dense, draws):
     return params_to_numpy(out), [float(a) for a in aux]
 
 
-@pytest.mark.parametrize("tv_dense", [True, False])
-def test_lts_step_grads_match_reference(setup, tv_dense):
-    key = jax.random.PRNGKey(11)
-    g_j, aux_j = _jax_grads(setup, tv_dense, key)
-    g_t, aux_t = _port_grads(setup, tv_dense,
-                             jax_draws(setup[2], key, len(setup[5]["rgbs"])))
+def assert_lts_step_close(g_j, aux_j, g_t, aux_t):
+    """Both marches without overflow; k2 counts equal, k1 to the jitted
+    reciprocal's rounding; the four MSEs to the fine step's rtol; every
+    group's gradient to 1e-4 of its largest entry."""
     assert aux_j[4] == aux_t[4] == 0.0  # overflow, both marches
     assert aux_t[6] == aux_j[6] and aux_t[8] == aux_j[8]  # k2, k2_2nd
     np.testing.assert_allclose([aux_t[5], aux_t[7]], [aux_j[5], aux_j[7]],
@@ -214,6 +215,17 @@ def test_lts_step_grads_match_reference(setup, tv_dense):
         for k in lj:
             err = np.abs(lt[k] - lj[k]).max() / scale
             assert err <= 1e-4, (grp, k, err)
+
+
+@pytest.mark.parametrize("tv_dense", [True, False])
+def test_lts_step_grads_match_reference(setup, tv_dense):
+    key = jax.random.PRNGKey(11)
+    jcfg, tcfg, jm, tm, params, b = setup
+    args = _step_args(tv_dense)
+    g_j, aux_j = jax_lts_grads(jcfg, jm, params, b, args, key)
+    g_t, aux_t = port_lts_grads(tcfg, tm, params, b, args,
+                                jax_draws(jm, key, len(b["rgbs"])))
+    assert_lts_step_close(g_j, aux_j, g_t, aux_t)
 
 
 @pytest.mark.parametrize("n_real", [3, 40])

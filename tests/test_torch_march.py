@@ -42,7 +42,7 @@ def test_mask_cache_matches_reference():
     jg, tg = _geos(8)
     jmc, tmc = jg.mask_cache, tg.mask_cache
     for a, b in [(tmc.density, jmc.density), (tmc.occ_sup, jmc.occ_sup),
-                 (tmc.occ64, jmc.occ64), (tg._mask_sup_blk, jg._mask_sup_blk)]:
+                 (tg.occ64, jmc.occ64), (tg._mask_sup_blk, jg._mask_sup_blk)]:
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert tmc.act_shift == jmc.act_shift
     np.testing.assert_array_equal(tg.nonempty_mask().numpy(),
