@@ -22,7 +22,10 @@ Phases, in order; any failure exits non-zero:
    fine-tune step on each of its two paths (from the same random draws)
    on the card against the same steps on the CPU (plain versions): loss
    terms, march counters (both marches of the LTS and PDRA steps; the
-   fine-tune's cached slots) and every group's gradient;
+   fine-tune's cached slots) and every group's gradient; then
+   (grad_small) the small fine and coarse steps again with
+   app.model.neus_alpha=grad (the march's NeuS alpha from the SDF
+   gradient grid sampled at the phase-1 points);
 5. train: the fine-stage train step at full width (cfg/app/fine.yaml: 256^3
    = 16,777,216 voxels, 8,192 rays, 192-wide heads; the benchmark's ball
    scene and budgets) through build_fine_train_step, 3 warm-up and 12
@@ -35,7 +38,13 @@ Phases, in order; any failure exits non-zero:
    replay of each captured launch: kernel against plain version (K-3 at
    rtol 5e-4 / atol 5e-5 of the plain result's max, K-4 and K-1 bitwise,
    K-2 bitwise against the oracle), times with the L2 warm and cold, and
-   bound; then the LTS train step at full width (cfg/app/lts.yaml, 256^3,
+   bound; then (grad_train) the same fine step with
+   app.model.neus_alpha=grad, 2 warm-up and 10 timed steps, its profile,
+   in-step launches (K-1..K-4 each launched, overflow 0) and captured
+   launches replayed as above, and five more steps under the port's
+   StepTimer, three of them inside its TraceCapture (a Chrome trace that
+   must exist), the timer's rays/s beside the host clock's; then the LTS
+   train step at full width (cfg/app/lts.yaml, 256^3,
    8,192 rays, 100 LTS points x 256 secondary rays = 25,600; the budgets
    and ball scene of scripts/bench_lts.py) through build_lts_train_step, 2
    warm-up and 10 timed steps: overflow 0 on both marches, finite losses,
@@ -74,11 +83,16 @@ Phases, in order; any failure exits non-zero:
    fine checkpoint, found by path: 16 steps (the config's budgets), eval
    with the envmap images and the mesh, checkpoint, a resume to step 18
    and the test_nv eval of the saved checkpoint, with the same asserts;
+   then (import) that LTS checkpoint rewritten in the reference's layout
+   (torch tensors, its key names, a pickled config whose class's module
+   is not installed), imported by python -m
+   esrnerf_tpu_torch.scripts.import_reference_ckpt, and one LTS eval chunk
+   of 4,096 rays from each checkpoint, held bitwise;
    then the PDRA stage from that LTS checkpoint, found by path: 8 steps of
    8,192 + 8,192 rays (the PDRA step's budgets) with regroups at steps 0,
    3 and 7, eval with the emission IoU and the mesh, checkpoint, a resume
    to step 10 and the test_nv eval of the saved checkpoint; then
-   test_nvc, test_nvi and test_nvic on one test view each (50 fine-tune
+   test_nvc, test_nvi and test_nvic on one test view each (20 fine-tune
    steps, the relit render). Asserts finite metrics, overflow 0, the
    IoUs, the eval files and the kernels launched; prints each relight
    phase's first and last fine-tune loss (emo_MSE);
@@ -86,7 +100,7 @@ Phases, in order; any failure exits non-zero:
    esrnerf_tpu_torch.run.main on another synthetic 256x256 scene, each
    finding the previous stage's checkpoint by path: alphamask at full
    width (cfg/app/alphamask.yaml: 1,024,000 voxels, 8,192 rays; its
-   view-count set-up), 2,000 steps, eval and checkpoint; coarse at full
+   view-count set-up), 1,000 steps, eval and checkpoint; coarse at full
    width (cfg/app/coarse.yaml: 884,736 voxels, 8,192 rays, 128-wide heads)
    with its DVGO-style ray filter, 60 steps, eval with its mesh,
    checkpoint, a resume to step 64 and the test_nv eval of the saved
@@ -108,8 +122,9 @@ Phases, in order; any failure exits non-zero:
    fine -> LTS through esrnerf_tpu_torch.run.main with
    cfg/exp/dtu/97/*.yaml at the configs' widths, each stage finding the
    previous checkpoint by path: 1,000, 60, 12 (the grid rescaled to 256^3
-   at step 6; phase 7's fine budgets and sharpness) and 6 steps (the
-   config's budgets), each ending with a test_nv eval (N_vis 1: two
+   at step 6; phase 7's fine budgets and sharpness) and 6 steps (864 /
+   256 phase-1 samples a ray: the config's 256 / 96 drop samples on this
+   scan), each ending with a test_nv eval (N_vis 1: two
    1200x1200 renders), its mesh and, but for alphamask, the Chamfer
    distance (mesh/CD). Per stage: the datasets' load s and the set-up s,
    median step ms, device busy ms and launches per step (three more
@@ -118,12 +133,15 @@ Phases, in order; any failure exits non-zero:
    overflow 0 (coarse, fine, LTS primary and secondary), a finite mesh/CD
    in coarse, fine and LTS, the eval files, and the kernels launched in
    each stage's training (alphamask K-3; coarse K-1..K-4 weighted; fine
-   and LTS K-1..K-4).
+   and LTS K-1..K-4); then (advisor) python -m
+   esrnerf_tpu_torch.scripts.budget_advisor over the DTU LTS stage's
+   metrics.jsonl, its lines printed.
 
 Prints one JSON line per phase (each with ``elapsed_s``, the seconds since
 the script started), then the kernel table as one JSON object
 (``launches``: the fine step's; ``launches_lts_step``,
 ``launches_pdra_step``, ``launches_finetune_step``: those steps';
+``launches_grad_step``: the grad-alpha fine step's;
 ``launches_dtu_step``: per step of each DTU stage),
 the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -583,16 +601,18 @@ def assert_grads_close(g_c, g_d):
     return worst
 
 
-def check_small_step(device, seed=0):
+def check_small_step(device, seed=0, extra=()):
     """One small fine step on ``device`` against the plain versions on the
     CPU: same parameters and batch; loss terms at rtol 1e-4 and each
-    group's gradient within 1e-4 of its max |g|."""
+    group's gradient within 1e-4 of its max |g|. ``extra``: config
+    overrides (the march's alpha variant)."""
     import torch
 
     from esrnerf_tpu_torch.apps.fine import build_fine_train_step
 
     ov = ["app.model.rgbnet_width=32", "app.model.rgbnet_depth=2",
-          "app.model.tonemap_width=32", "system.compute_dtype=float32"]
+          "app.model.tonemap_width=32", "system.compute_dtype=float32",
+          *extra]
     out = {}
     params_cpu = None
     for dev in (torch.device("cpu"), device):
@@ -630,12 +650,12 @@ def _ball_mask_cache(dev, mask_res=16):
                            [1] * 3, 1e-6, 1e-3, 3, device=dev)
 
 
-def check_small_upstream_steps(device, seed=0):
+def check_small_upstream_steps(device, seed=0, coarse_extra=()):
     """One small alphamask step and one small coarse step on ``device``
     against the same steps on the CPU (plain versions), from the same
     parameters, batch and ray shifts: the MSE at rtol 1e-4, the coarse
     march's counters equal, and each group's gradient within 1e-4 of its
-    max |g|."""
+    max |g|. ``coarse_extra``: the coarse config's overrides."""
     import torch
 
     from esrnerf_tpu_torch.apps.alphamask import build_alphamask_train_step
@@ -652,7 +672,8 @@ def check_small_upstream_steps(device, seed=0):
                      base + ["app.model.num_voxels=32768"], root_dir=REPO)
     c_cfg = load_cfg("cfg/app/coarse.yaml",
                      base + ["app.model.num_voxels=32768",
-                             "app.model.rgbnet_width=32"], root_dir=REPO)
+                             "app.model.rgbnet_width=32", *coarse_extra],
+                     root_dir=REPO)
     out, a_params, c_params = {}, None, None
     for dev in (torch.device("cpu"), device):
         on = lambda tree: {k: ({kk: vv.to(dev) for kk, vv in v.items()}
@@ -696,9 +717,26 @@ def check_small_upstream_steps(device, seed=0):
                        "max_grad_err_rel": assert_grads_close(gc_c, gc_d)}}
 
 
-def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12):
-    """The fine train step at full width; returns its metrics and the
-    launches per kernel over the timed steps."""
+# the grad-variant NeuS alpha of the march (coarse and fine stages)
+GRAD = ["app.model.neus_alpha=grad"]
+
+
+def check_small_grad_steps(device, seed=0):
+    """grad_small: :func:`check_small_step` and the coarse half of
+    :func:`check_small_upstream_steps` with ``app.model.neus_alpha=grad``:
+    the gradient grid sampled at the phase-1 points, its splat back."""
+    return {"fine": check_small_step(device, seed, extra=GRAD),
+            "coarse": check_small_upstream_steps(
+                device, seed, coarse_extra=GRAD)["coarse"]}
+
+
+def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12,
+                     overrides=(), trace_dir=None):
+    """The fine train step at full width (``overrides`` on the config);
+    returns its metrics and the launches per kernel over the timed steps.
+    With ``trace_dir``, five more steps run under ``StepTimer`` with steps
+    2-4 traced by ``TraceCapture`` (``system.profile_*``) into a Chrome
+    trace there."""
     import torch
 
     from esrnerf_tpu_torch.apps.fine import build_fine_train_step
@@ -706,7 +744,7 @@ def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12):
     from esrnerf_tpu_torch.optim import Adam
 
     t0 = time.perf_counter()
-    cfg, model = build_fine(device, num_voxels)
+    cfg, model = build_fine(device, num_voxels, overrides)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init_params(gen)
     opt = Adam(dict(cfg.app.trainer.lrs))
@@ -751,6 +789,7 @@ def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12):
         "step_ms": dt / timed * 1e3, "rays_per_s": n_rays * timed / dt,
         "setup_s": setup_s, "warmup_s": warm_s,
         "mse_first": float(aux[0, 0]), "mse_last": float(aux[-1, 0]),
+        "overflow_max": float(aux[:, 2].max()),
         "k1_frac": float(aux[:, 3].max()), "k2_frac": float(aux[:, 4].max()),
         "launches_per_step": {k: v / timed for k, v in launches.items()},
     }
@@ -763,7 +802,40 @@ def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12):
                             / res["step_ms"])
     captured = capture_launches(lambda: run(200))
     sync(device)
+    if trace_dir is not None:
+        res["trace"] = traced_steps(device, run, n_rays, trace_dir)
     return res, launches, captured
+
+
+def traced_steps(device, run, n_rays, trace_dir, first=300):
+    """Five synchronised steps ``run(first ..)`` ticking a ``StepTimer``,
+    steps 2-4 inside a ``TraceCapture`` configured as a run's
+    ``system.profile_*`` keys; the trace file must exist and hold events.
+    Returns the timer's rays/s beside the host clock's over the same
+    steps, and the trace's size."""
+    from esrnerf_tpu_torch.utils.profiling import StepTimer, TraceCapture
+
+    cap = TraceCapture({"system": {"profile_dir": trace_dir,
+                                   "profile_from": first + 1,
+                                   "profile_steps": 3}})
+    timer = StepTimer(window=5)
+    t0 = time.perf_counter()
+    for i in range(first, first + 5):
+        cap.step(i)
+        run(i)
+        sync(device)
+        timer.tick(n_rays)
+    host = 5 * n_rays / (time.perf_counter() - t0)
+    cap.close()
+    if cap.path is None or not os.path.exists(cap.path):
+        raise AssertionError(f"TraceCapture wrote no trace in {trace_dir}")
+    with open(cap.path) as f:
+        head = f.read(1 << 16)
+    if '"traceEvents"' not in head or '"ph"' not in head:
+        raise AssertionError(f"no trace events in {cap.path}")
+    return {"trace_bytes": os.path.getsize(cap.path),
+            "step_timer_rays_per_s": timer.stats()["rays_per_sec"],
+            "host_rays_per_s": host}
 
 
 # ------------------------------------------------- the LTS step (phase 5)
@@ -1545,8 +1617,10 @@ def records_to(records, device):
 def replay_launches(records, device):
     """Each captured launch again: the kernel against its plain version on
     the captured inputs (K-3 on a zero table within ``assert_splat_close``,
-    K-4 bitwise; the scan's launches in ``replay_scan``), its time and the plain version's (10 back-to-back calls,
-    CUDA events), its time with the L2 cold before each call (the step
+    K-4 bitwise; the scan's launches in ``replay_scan``), its time (the
+    median of 5 runs of 10 back-to-back calls, CUDA events) and the plain
+    version's (one run of 10 calls), its time with the L2 cold before each
+    call (the step
     meets most tables cold; ``time_cold_ms``), and its bound from the
     captured shapes and n_valid
     (inputs of the live rows read once; the distinct table rows the splat
@@ -1584,7 +1658,7 @@ def replay_launches(records, device):
             o_k, o_p = zeros(), zeros()
             ms = time_ms(lambda: fn(o_k), device)
             cold_ms = time_cold_ms(lambda: fn(o_k), device)
-            plain_ms = time_ms(lambda: plain(o_p), device)
+            plain_ms = time_ms(lambda: plain(o_p), device, runs=1)
             rows_hit = base[:n_live].long()[None, :] + offs_t[:, None]
             rows_hit = rows_hit[(rows_hit >= 0) & (rows_hit < n_cells)]
             uniq = int(torch.unique(rows_hit).numel())
@@ -1615,7 +1689,8 @@ def replay_launches(records, device):
             plain = lambda: splatops._gather_plain(table, base, w, offs, raw,
                                                    nv)
             err = assert_close(label, fn(), plain(), 0.0, 0.0)
-            ms, plain_ms = time_ms(fn, device), time_ms(plain, device)
+            ms, plain_ms = time_ms(fn, device), time_ms(plain, device,
+                                                         runs=1)
             cold_ms = time_cold_ms(fn, device)
             if nv is not None:
                 g = splatops.GATHER_CHUNK
@@ -1669,7 +1744,7 @@ def replay_scan(r, label, device):
             *(x.cpu().numpy() for x in (a, tin, ctw, ctl)), ee), device)
         del got
         nbytes, nops = 4 * (4 * sn + N), 9 * sn
-    ms, plain_ms = time_ms(fn, device), time_ms(plain, device)
+    ms, plain_ms = time_ms(fn, device), time_ms(plain, device, runs=1)
     cold_ms = time_cold_ms(fn, device)
     b, by = bound_ms(nbytes, nops)
     # what the step's data holds that synthetic inputs may not: opaque
@@ -2060,6 +2135,7 @@ def lts_stage(device, work, n_rays=N_RAYS, n_iters=16, resume_iters=18,
              if r["step"] not in (0, n_iters)]
     ev = _stage_rows(app3)[-1]
     return {
+        "ckpt": ckpt,
         "n_rays": n_rays, "world_size": list(app.renderer.geo.world_size),
         "setup_s": app.timings["setup_s"], "train_s": train_s,
         "resume_s": resume_s, "test_nv_s": test_nv_s,
@@ -2081,6 +2157,133 @@ def lts_stage(device, work, n_rays=N_RAYS, n_iters=16, resume_iters=18,
     }
 
 
+def save_with_absent_cfg_class(obj, path):
+    """``torch.save(obj)`` with ``obj["renderer"]["cfg"]`` an instance of
+    ``omegaconf.dictconfig.DictConfig`` from modules that exist only while
+    it saves: a reference checkpoint as read where Hydra's ``omegaconf`` is
+    not installed."""
+    import types
+
+    import torch
+
+    mod = types.ModuleType("omegaconf.dictconfig")
+    mod.DictConfig = type("DictConfig", (), {"__module__": mod.__name__})
+    cfg = mod.DictConfig()
+    cfg.__dict__["_content"] = {"app": {"cls": "fine.LTS"}}
+    obj["renderer"]["cfg"] = cfg
+    sys.modules.update({"omegaconf": types.ModuleType("omegaconf"),
+                        "omegaconf.dictconfig": mod})
+    try:
+        torch.save(obj, path)
+    finally:
+        del sys.modules["omegaconf"], sys.modules["omegaconf.dictconfig"]
+
+
+def import_reference(device, work, ckpt, n_rays=4096, extra=()):
+    """The LTS checkpoint ``ckpt`` rewritten in the reference's layout
+    (``[1, C, X, Y, Z]`` grids, ``[out, in]`` Linear weights, the
+    reference's key names, torch tensors, a pickled config whose class's
+    module is not installed) under a ``fine.LTS`` path, imported by
+    ``python -m esrnerf_tpu_torch.scripts.import_reference_ckpt`` (kind
+    from the path), then one LTS eval chunk (``n_rays`` rays with the PBR
+    decomposition) from each checkpoint through the LTS stage's eval
+    model: every output bitwise equal (deterministic algorithms on, so the
+    per-ray ``index_add`` sums in one order)."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.lts import LTS
+    from esrnerf_tpu_torch.config import customize_cfg, load_cfg
+    from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
+    from esrnerf_tpu_torch.utils.import_torch_ckpt import \
+        reference_state_dict
+
+    payload = ckpt_io.load_checkpoint(ckpt)
+    r, t = payload["renderer"], payload["trainer"]
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    ref = {"renderer": {
+        "near": r["near"], "far": r["far"], "xyz_min": T(r["xyz_min"]),
+        "xyz_max": T(r["xyz_max"]),
+        "s_val": torch.tensor(r["s_val"], dtype=torch.float64),
+        "num_voxels": r["num_voxels"],
+        "mask_density": T(np.moveaxis(r["mask_density"], -1, 0)[None]),
+        "mask_xyz_min": T(r["mask_xyz_min"]),
+        "mask_xyz_max": T(r["mask_xyz_max"]),
+        "mask_alpha_init": r["mask_alpha_init"],
+        "params": {k: T(v) for k, v in
+                   reference_state_dict(r["params"], "esrnerf").items()}},
+        "trainer": {"global_step": t["global_step"]}}
+    src = os.path.join(work, "reference", "fine.LTS", "last.ckpt")
+    dst = os.path.join(work, "imported", "last.ckpt")
+    os.makedirs(os.path.dirname(src))
+    save_with_absent_cfg_class(ref, src)
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m",
+           "esrnerf_tpu_torch.scripts.import_reference_ckpt", src, dst]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+    import_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "kind=esrnerf" not in proc.stdout:
+        raise AssertionError(f"import_reference_ckpt failed ({proc.returncode})"
+                             f": {proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+
+    b = make_batch(0, n_rays, device)
+    outs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for path in (ckpt, dst):
+            cfg = customize_cfg(load_cfg(
+                os.path.join(REPO, "cfg/exp/esrnerf/giftbox_w/lts.yaml"),
+                ["app.phase=test_nv", f"app.eval.ckpt={path}",
+                 f"data.root={work}/data", "data.scene=synth_ball",
+                 f"log.root={work}/logs", "log.name=import",
+                 "log.offline=true", f"system.device={device.type}",
+                 *extra], root_dir=REPO))
+            app = LTS(cfg)
+            app.load_model()
+            with torch.no_grad():
+                out = app._eval_chunk(b["rays_o"], b["rays_d"],
+                                      b["viewdirs"], 1,
+                                      torch.eye(3, device=device),
+                                      float(app.renderer.s_val))
+            outs.append({k: v.cpu() for k, v in out.items()})
+            del app
+    finally:
+        torch.use_deterministic_algorithms(False)
+    orig, imp = outs
+    if orig.keys() != imp.keys():
+        raise AssertionError(f"eval keys {sorted(orig)} vs {sorted(imp)}")
+    differ = [k for k in orig if not torch.equal(orig[k], imp[k])]
+    if differ:
+        raise AssertionError(f"imported checkpoint's eval differs: {differ}")
+    hit = float((orig["etc/white_bg"] < 0.5).float().mean())
+    if not hit > 0:
+        raise AssertionError("the eval chunk hit no surface")
+    return {"reference_bytes": os.path.getsize(src),
+            "imported_bytes": os.path.getsize(dst), "import_s": import_s,
+            "stdout": proc.stdout.strip().splitlines()[-1],
+            "eval_rays": n_rays, "eval_keys": len(orig), "hit_share": hit,
+            "bitwise": True}
+
+
+def advise(work, stage_cls="fine.LTS"):
+    """``python -m esrnerf_tpu_torch.scripts.budget_advisor`` over the log
+    dirs of ``stage_cls`` under ``work``: its printed lines."""
+    logs = [d for d, _, fs in os.walk(work)
+            if "metrics.jsonl" in fs and stage_cls in d]
+    if not logs:
+        raise AssertionError(f"no {stage_cls} metrics.jsonl under {work}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "esrnerf_tpu_torch.scripts.budget_advisor",
+         *logs], capture_output=True, text=True, timeout=300, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO})
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or not any("k1_frac_2nd" in ln for ln in lines):
+        raise AssertionError(f"budget_advisor failed ({proc.returncode}): "
+                             f"{proc.stdout[-1000:]} {proc.stderr[-1000:]}")
+    return {"logs": [os.path.relpath(d, work) for d in logs],
+            "lines": lines}
+
+
 PDRA_TRAIN_KERNELS = LTS_TRAIN_KERNELS
 RELIGHT_KERNELS = FT_KERNELS
 RELIGHT_PHASES = ("test_nvc", "test_nvi", "test_nvic")
@@ -2098,7 +2301,7 @@ def _keep_first_frame(work, phase):
 
 
 def pdra_stage(device, work, batch=PDRA_BATCH, n_iters=8, resume_iters=10,
-               group_interval=4, ft_iters=50, extra=()):
+               group_interval=4, ft_iters=20, extra=()):
     """The PDRA stage through ``esrnerf_tpu_torch.run.main`` in ``work``,
     after ``lts_stage``: it finds that LTS run's checkpoint by path, regroups
     at step 0 and every ``group_interval`` steps, trains ``n_iters`` steps
@@ -2305,7 +2508,7 @@ def _assert_eval_files(app, step, mesh):
 
 
 def chain_stages(device, work, device_line=None, wh=256, n_train=12,
-                 n_test=3, am_iters=2000, co_iters=60, co_resume_iters=64,
+                 n_test=3, am_iters=1000, co_iters=60, co_resume_iters=64,
                  fine_iters=4, fine_voxels=128**3, extra=None, co_extra=(),
                  prof_steps=3):
     """The three stages through ``esrnerf_tpu_torch.run.main`` on one
@@ -2726,6 +2929,7 @@ def main() -> int:
     emit({"phase": "check_lts", **check_small_lts_step(device)})
     emit({"phase": "check_pdra", **check_small_pdra_step(device)})
     emit({"phase": "check_finetune", **check_small_finetune(device)})
+    emit({"phase": "grad_small", **check_small_grad_steps(device)})
 
     res, launches, captured = train_full_width(device, NUM_VOXELS, N_RAYS)
     res["device"] = smi
@@ -2744,6 +2948,28 @@ def main() -> int:
     if seen != set(_CAPTURED):
         raise AssertionError(f"captured step launched only {sorted(seen)}")
     replay_launches(captured, device)
+    del res, captured
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="esr_trace_") as tdir:
+        res, grad_launches, captured = train_full_width(
+            device, NUM_VOXELS, N_RAYS, warmup=2, timed=10, overrides=GRAD,
+            trace_dir=tdir)
+    res["device"] = smi
+    emit({"phase": "grad_train", **res})
+    missing = [k for k in _CAPTURED if grad_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the grad-alpha fine "
+                             f"step: {missing}")
+    emit({"phase": "grad_in_step", "device": smi, "kernels": {
+        k: {"ms_per_step": res["profile"]["port_kernels_ms_per_step"][k],
+            "launches_per_step": res["launches_per_step"][k]}
+        for k in _CAPTURED}})
+    seen = {r["kernel"] for r in captured}
+    if seen != set(_CAPTURED):
+        raise AssertionError(f"captured grad step launched only {sorted(seen)}")
+    replay_launches([dict(r, site="grad: " + r["site"]) for r in captured],
+                    device)
     del res, captured
     torch.cuda.empty_cache()
 
@@ -2825,6 +3051,7 @@ def main() -> int:
         r["launches_lts_step"] = lts_launches.get(r["name"], 0)
         r["launches_pdra_step"] = pdra_launches.get(r["name"], 0)
         r["launches_finetune_step"] = ft_launches.get(r["name"], 0)
+        r["launches_grad_step"] = grad_launches.get(r["name"], 0)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="esr_smoke_") as work:
@@ -2834,7 +3061,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         lt = lts_stage(device, work)
         lt["device"] = smi
+        lts_ckpt = lt.pop("ckpt")
         emit({"phase": "lts_trainer", **lt})
+        torch.cuda.empty_cache()
+        emit({"phase": "import", **import_reference(device, work, lts_ckpt),
+              "device": smi})
         torch.cuda.empty_cache()
         pd = pdra_stage(device, work)
     pd["device"] = smi
@@ -2858,6 +3089,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="esr_dtu_") as work:
         emit({"phase": "decoders", **check_decoders(work), "device": smi})
         _, dtu_rows = dtu_stages(device, work, smi)
+        emit({"phase": "advisor", **advise(work)})
     for r in rows:
         r["launches_dtu_step"] = {
             d["stage"]: d["kernel_launches_per_step"].get(r["name"], 0)

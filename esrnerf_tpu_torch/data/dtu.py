@@ -10,9 +10,9 @@ arrays equal the JAX loader's (poses and rays to within a float32 ulp).
 The JAX loader reads the PNGs with PIL and decomposes the cameras with
 OpenCV; this one reads the PNGs with :mod:`esrnerf_tpu_torch.utils.png`
 and decomposes the cameras in numpy and scipy (:func:`load_K_Rt_from_P`),
-so neither PIL nor OpenCV is needed. Only a ``data.resize`` that changes
-the image size imports PIL (its Lanczos, as the JAX loader); at ``resize:
-1.0`` the resampler returns its input.
+so neither PIL nor OpenCV is needed; ``data.resize`` resamples with PIL's
+Lanczos as the JAX loader, reproduced by
+:mod:`esrnerf_tpu_torch.data.resample`.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 
 from esrnerf_tpu_torch.data.base import DataClass, LightDict
 from esrnerf_tpu_torch.data.esrnerf import _imread_float as _imread
-from esrnerf_tpu_torch.data.esrnerf import _need
+from esrnerf_tpu_torch.data.esrnerf import _imresize
 
 
 def load_K_Rt_from_P(P: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -54,17 +54,6 @@ def load_K_Rt_from_P(P: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     pose[:3, :3] = R.transpose()
     pose[:3, 3] = -np.linalg.solve(M, P[:, 3])
     return intrinsics, pose
-
-
-def _imresize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """PIL's Lanczos resize of a [0, 1] image through uint8, as the JAX
-    loader; at the image's own size that is the identity (every uint8
-    level survives ``x / 255 * 255``), so the input comes back."""
-    if (img.shape[1], img.shape[0]) == tuple(size):
-        return img
-    Image = _need("PIL.Image", "images")
-    arr = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
-    return np.asarray(arr.resize(size, Image.LANCZOS), dtype=np.float32) / 255.0
 
 
 class DTU(DataClass):

@@ -10,10 +10,10 @@ background; the train phase flattens all images into one ray pool. The
 arrays equal the JAX loader's.
 
 PNGs are read with :mod:`esrnerf_tpu_torch.utils.png` and EXRs with
-:mod:`esrnerf_tpu_torch.utils.exr`, so neither PIL nor OpenCV is needed.
-Only a ``data.resize`` that changes the image size imports them (PIL's
+:mod:`esrnerf_tpu_torch.utils.exr`, and a ``data.resize`` that changes the
+image size resamples with :mod:`esrnerf_tpu_torch.data.resample` (PIL's
 Lanczos for images and masks, OpenCV's Lanczos-4 for HDRs, as the JAX
-loader does); at ``resize: 1.0`` those resamplers return their input.
+loader does), so neither PIL nor OpenCV is needed.
 The JAX loader also reads the relighting phases' HDR EXRs and never uses
 them; this one does not read them.
 """
@@ -27,6 +27,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from esrnerf_tpu_torch.data import resample
 from esrnerf_tpu_torch.data.base import DataClass, LightDict
 from esrnerf_tpu_torch.utils import exr, png
 
@@ -41,26 +42,21 @@ def _imread_float(path: str) -> np.ndarray:
     return png.read(path).astype(np.float32) / 255.0
 
 
-def _need(module: str, what: str):
-    import importlib
-
-    try:
-        return importlib.import_module(module)
-    except ImportError as e:
-        raise ImportError(
-            f"data.resize needs {module} to resample {what}; install it or "
-            "set data.resize to 1.0") from e
-
-
 def _imresize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    Image = _need("PIL.Image", "images")
-    arr = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
-    return np.asarray(arr.resize(size, Image.LANCZOS), dtype=np.float32) / 255.0
+    """PIL's Lanczos resize of a [0, 1] image through uint8, as the JAX
+    loader (:func:`~esrnerf_tpu_torch.data.resample.lanczos_pil`); at the
+    image's own size that is the identity (every uint8 level survives ``x /
+    255 * 255``), so the input comes back."""
+    if (img.shape[1], img.shape[0]) == tuple(size):
+        return img
+    u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    return resample.lanczos_pil(u8, size).astype(np.float32) / 255.0
 
 
 def _hdr_resize(hdr: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    cv2 = _need("cv2", "HDR images")
-    return cv2.resize(hdr, size, interpolation=cv2.INTER_LANCZOS4)
+    """OpenCV's Lanczos-4 resize of an HDR, as the JAX loader
+    (:func:`~esrnerf_tpu_torch.data.resample.lanczos4_cv2`)."""
+    return resample.lanczos4_cv2(hdr, size)
 
 
 class ESRNeRF(DataClass):

@@ -69,6 +69,11 @@ class ESRNeRF(VoxurfF):
         super().__init__(cfg, near, far, xyz_min, xyz_max, mask_cache, s_val,
                          num_voxels, mask_meta)
         m = cfg.app.model
+        if self.neus_alpha != "interp":
+            # the reference's LTS and PDRA marches take no gradient grid
+            raise ValueError(
+                f"app.model.neus_alpha={self.neus_alpha}: the LTS and PDRA "
+                "stages (ESRNeRF) march with neus_alpha=interp only")
         self.brdfnet_width = int(m["brdfnet_width"])
         self.brdfnet_depth = int(m["brdfnet_depth"])
         self.env_sg = int(m["env_sg"])

@@ -410,6 +410,7 @@ class VoxurfGeometry:
         k_budget: int | None = None,
         k1_budget: int | None = None,
         near_override: float | None = None,
+        gradient_grid: torch.Tensor | None = None,
     ) -> March:
         """Two-phase NeuS march: early compaction, then the scans.
 
@@ -422,10 +423,18 @@ class VoxurfGeometry:
         ``k_budget`` / ``k1_budget`` replace the per-ray head and phase-1
         budgets (K2, K1) and ``near_override`` the scene's near plane (the
         LTS secondary march).
+
+        ``neus_alpha="interp"`` pairs each sample with its ray's
+        neighbours on the dense bridge; ``"grad"`` takes the section from
+        ``gradient_grid`` (the SDF gradient, ``[X, Y, Z, 3]``) sampled at
+        the phase-1 points and the ray's direction, pointwise, so only the
+        alphas cross the bridge.
         """
-        if neus_alpha != "interp":
-            raise NotImplementedError(
-                "march: only neus_alpha='interp' is ported (every stage's)")
+        if neus_alpha not in ("interp", "grad"):
+            raise ValueError(f"unknown neus_alpha '{neus_alpha}' (interp or "
+                             "grad)")
+        if neus_alpha == "grad" and gradient_grid is None:
+            raise ValueError("march: neus_alpha='grad' needs gradient_grid")
         if style not in ("coarse", "fine"):
             raise ValueError(f"unknown march style '{style}'")
         dev = rays_o.device
@@ -539,9 +548,14 @@ class VoxurfGeometry:
             full = splatops.sorted_scatter_1d(lin, x, dsize, n_valid=nv1)
             return full.reshape(N + 1, Sp)[:N]
 
-        sdf_d = to_dense(sdf1)
-        val_d = to_dense(exact)
-        alpha_d = renderops.neus_alpha_interp(sdf_d, val_d, s_val)
+        if neus_alpha == "grad":
+            grad1 = self.sample_grid(gradient_grid, pts1)
+            alpha_d = to_dense(renderops.neus_alpha_grad_flat(
+                sdf1, grad1, viewdirs.index_select(0, r1c), self.stepdist,
+                exact, s_val))
+        else:
+            alpha_d = renderops.neus_alpha_interp(
+                to_dense(sdf1), to_dense(exact), s_val)
 
         def gather_back(cols):
             dense = torch.stack(cols, -1).reshape(-1, len(cols))

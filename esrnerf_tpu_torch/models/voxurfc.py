@@ -121,12 +121,14 @@ class VoxurfC:
     def _march_features(self, params, rays_o, rays_d, viewdirs, s_val):
         geo = self.geo
         with record_function("coarse/march"):
+            # the unsmoothed SDF's gradient: the grad-variant alpha's
+            # sections here, the normals below
+            grad_grid = geo.sdf_gradient(params["sdf"])
             m = geo.march(self.smoothed_sdf(params), rays_o, rays_d, viewdirs,
                           s_val, self.fastcolor_thres, self.neus_alpha,
-                          style="coarse")
+                          style="coarse", gradient_grid=grad_grid)
         with record_function("coarse/features"):
-            grad_pts = geo.sample_grid_sorted(
-                geo.sdf_gradient(params["sdf"]), m.pts)
+            grad_pts = geo.sample_grid_sorted(grad_grid, m.pts)
             normal = grad_pts / (
                 torch.linalg.vector_norm(grad_pts, dim=-1, keepdim=True)
                 + 1e-5)

@@ -185,6 +185,13 @@ class VoxurfF:
         return F.softplus(mlpops.apply_mlp(
             params[f"{head}_rgbnet"], x, compute_dtype=self.mlp_dtype))
 
+    def _march_gradient(self, params: Params):
+        """The SDF gradient grid the grad-variant march alpha takes, None
+        for the interp variant."""
+        if self.neus_alpha != "grad":
+            return None
+        return self.geo.sdf_gradient(params["sdf"])
+
     # -------------------------------------------------------------- forwards
 
     def forward_training(self, params: Params, rays_o, rays_d, viewdirs,
@@ -194,6 +201,7 @@ class VoxurfF:
             m = geo.march(
                 params["sdf"], rays_o, rays_d, viewdirs, s_val,
                 self.fastcolor_thres, self.neus_alpha, style="fine",
+                gradient_grid=self._march_gradient(params),
             )
         rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
         with record_function("fine/features"):
@@ -234,6 +242,7 @@ class VoxurfF:
             m = geo.march(
                 params["sdf"], rays_o, rays_d, viewdirs, s_val,
                 self.fastcolor_thres, self.neus_alpha, style="fine",
+                gradient_grid=self._march_gradient(params),
             )
         rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
         feat = self._features(params, m.pts, viewdirs.index_select(0, rid),

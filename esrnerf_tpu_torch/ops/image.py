@@ -1,8 +1,12 @@
-"""Image-space ops. Port of ``esrnerf_tpu/ops/image.py``: the sRGB OETF
-and the RGB <-> HSV pair of the relighting fine-tune's colour edits."""
+"""Image-space ops. Port of ``esrnerf_tpu/ops/image.py``: the exact sRGB
+OETF/EOTF pair, PSNR from MSE, float -> uint8 images, and the RGB <-> HSV
+pair of the relighting fine-tune's colour edits."""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 
@@ -12,6 +16,25 @@ def apply_gamma_curve(image: torch.Tensor) -> torch.Tensor:
     # clamp the argument so the unused pow branch stays finite for autograd
     high = 1.055 * torch.pow(torch.clamp(image, min=1e-12), 1.0 / 2.4) - 0.055
     return torch.where(image <= 0.0031308, low, high)
+
+
+def remove_gamma_curve(image: torch.Tensor) -> torch.Tensor:
+    """sRGB -> linear (exact piecewise EOTF)."""
+    low = image / 12.92
+    high = torch.pow(torch.clamp((image + 0.055) / 1.055, min=1e-12), 2.4)
+    return torch.where(image < 0.04045, low, high)
+
+
+def mse2psnr(mse) -> torch.Tensor:
+    """``-10 log10(mse)``, as ``-10 ln(mse) / ln(10)``."""
+    return -10.0 * torch.log(torch.as_tensor(mse)) / math.log(10.0)
+
+
+def tensor2img(x) -> np.ndarray:
+    """0~1 float (array or tensor) -> 0~255 uint8, truncating."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return (255 * np.clip(np.asarray(x), 0, 1)).astype(np.uint8)
 
 
 def rgb_to_hsv(rgb: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

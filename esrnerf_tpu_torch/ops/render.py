@@ -1,9 +1,9 @@
 """Transmittance scans and NeuS alpha on dense ``[N, S]`` layouts.
 
-Port of the parts of ``esrnerf_tpu/ops/render.py`` that the ported stages
-use: the dense masked ``alpha2weights`` (the semantics the scan kernel must
-equal), the interp-variant NeuS alpha with ragged neighbour pairing, and
-DVGO's cumulative-product weights.
+Port of ``esrnerf_tpu/ops/render.py``: the dense masked ``alpha2weights``
+(the semantics the scan kernel must equal), the interp- and grad-variant
+NeuS alphas, DVGO's cumulative-product weights, the flat compacted-list
+(segmented) variants, and the dense per-ray ``segment_mean``.
 """
 
 from __future__ import annotations
@@ -94,8 +94,92 @@ def neus_alpha_interp(
     est_next = torch.where(has_next, 0.5 * (sdf + nxt), sdf)
     est_prev = torch.where(has_prev, 0.5 * (sdf + prv), sdf)
 
+    alpha = _neus_alpha(est_prev, est_next, s_val)
+    return torch.where(mask, alpha, torch.zeros_like(alpha))
+
+
+def _neus_alpha(est_prev, est_next, s_val):
+    """NeuS section alpha from the section's two endpoint SDF estimates."""
     prev_cdf = torch.sigmoid(est_prev * s_val)
     next_cdf = torch.sigmoid(est_next * s_val)
     p = torch.relu(prev_cdf - next_cdf)
-    alpha = torch.clamp((p + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
-    return torch.where(mask, alpha, torch.zeros_like(alpha))
+    return torch.clamp((p + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
+
+
+def neus_alpha_grad(sdf: torch.Tensor, gradients: torch.Tensor,
+                    viewdirs: torch.Tensor, dist, mask: torch.Tensor,
+                    s_val) -> torch.Tensor:
+    """Grad-variant NeuS alpha on ``[N, S]``: the section endpoints are
+    ``sdf -/+ (viewdir . gradient) * dist / 2``. ``gradients [N, S, 3]``,
+    ``viewdirs [N, 3]`` (broadcast over S) or ``[N, S, 3]``. Returns alpha
+    ``[N, S]``, 0 at invalid samples."""
+    if viewdirs.dim() == 2:
+        viewdirs = viewdirs[:, None, :]
+    return neus_alpha_grad_flat(sdf, gradients, viewdirs, dist, mask, s_val)
+
+
+# Segmented variants on the march's flat compacted list: each entry carries
+# its ray (``ray_id``, pads ``n_rays``), and the per-ray scans keep the
+# ragged ray_id-continuity semantics of the dense ones.
+
+
+def alpha2weights_flat(alpha: torch.Tensor, ray_id: torch.Tensor,
+                       step_id: torch.Tensor, n_rays: int, n_steps: int,
+                       early_exit: float | None = EARLY_EXIT_T):
+    """:func:`alpha2weights` on a flat list: the alphas go to their ``(ray,
+    step)`` slot of a dense ``[N, S]`` grid (empty slots alpha 0, so
+    transmittance factor 1), the scan (K-1 / K-2 on the card) runs there
+    and the weights come back. Pads use ``ray_id == n_rays`` with alpha 0.
+    Returns ``(weights [K], alphainv_last [N])``; a ray with no entry has
+    ``alphainv_last`` 1."""
+    from esrnerf_tpu_torch.ops import scan as scanops
+
+    lin = torch.clamp(ray_id, max=n_rays) * n_steps + step_id
+    dense = alpha.new_zeros((n_rays + 1) * n_steps).index_put((lin,), alpha)
+    ee = -1.0 if early_exit is None else float(early_exit)
+    w_dense, alphainv_last = scanops.alpha2weights_scan(
+        dense.reshape(n_rays + 1, n_steps)[:n_rays], ee)
+    w_flat = torch.cat([w_dense.reshape(-1), w_dense.new_zeros(n_steps)])
+    return w_flat[lin], alphainv_last
+
+
+def neus_alpha_interp_flat(sdf: torch.Tensor, ray_id: torch.Tensor,
+                           valid: torch.Tensor, s_val) -> torch.Tensor:
+    """:func:`neus_alpha_interp` on a flat list: each valid entry pairs with
+    the next and the previous valid entry of the same ray (holes skipped);
+    an entry without such a neighbour pairs with itself."""
+    K = sdf.shape[0]
+    cnt = torch.cumsum(valid.to(torch.int64), 0)
+    rank = cnt - 1  # 0-based rank of each valid entry
+    vpos = torch.nonzero(valid).reshape(-1)
+    vpos = torch.cat([vpos, vpos.new_full((K - vpos.numel(),), K - 1)])
+    n_valid = cnt[-1]
+
+    def neighbour(r, in_range):
+        pos = vpos[torch.clamp(r, 0, K - 1)]
+        return pos, valid & in_range & (ray_id[pos] == ray_id)
+
+    nxt_pos, has_next = neighbour(rank + 1, rank + 1 < n_valid)
+    prv_pos, has_prev = neighbour(rank - 1, rank - 1 >= 0)
+    est_next = torch.where(has_next, 0.5 * (sdf + sdf[nxt_pos]), sdf)
+    est_prev = torch.where(has_prev, 0.5 * (sdf + sdf[prv_pos]), sdf)
+    alpha = _neus_alpha(est_prev, est_next, s_val)
+    return torch.where(valid, alpha, torch.zeros_like(alpha))
+
+
+def neus_alpha_grad_flat(sdf: torch.Tensor, gradients: torch.Tensor,
+                         viewdirs_per_pt: torch.Tensor, dist,
+                         valid: torch.Tensor, s_val) -> torch.Tensor:
+    """:func:`neus_alpha_grad` on a flat list (pointwise): ``sdf [K]``,
+    ``gradients`` and ``viewdirs_per_pt [K, 3]``."""
+    iter_cos = (viewdirs_per_pt * gradients).sum(-1) * dist * 0.5
+    alpha = _neus_alpha(sdf - iter_cos, sdf + iter_cos, s_val)
+    return torch.where(valid, alpha, torch.zeros_like(alpha))
+
+
+def segment_mean(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted per-ray sum over the sample axis of the dense layout:
+    ``values [N, S, C]`` or ``[N, S]``, ``weights [N, S]``."""
+    if values.dim() == weights.dim() + 1:
+        weights = weights[..., None]
+    return (weights * values).sum(dim=-2 if values.dim() == 3 else -1)

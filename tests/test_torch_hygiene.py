@@ -92,27 +92,19 @@ def test_cpu_tensors_take_plain_versions_and_launchers_refuse_them():
         kernels.gather_raw(torch.zeros((5, 1)), base, (0,))
 
 
-# the only way the port reaches these: _need() in the resize paths
-_LAZY_ONLY = ("sklearn", "cv2", "PIL")
-_RESIZERS = ("_imresize", "_hdr_resize")
+_BANNED = ("sklearn", "cv2", "PIL")
 
 
 def test_port_imports_no_pil_opencv_or_sklearn():
     """No module of the port imports sklearn, OpenCV or PIL, at module level
-    or inside a function; the only way to them is ``_need("PIL.Image" |
-    "cv2", ...)`` inside a resize function (``data.resize`` other than
-    1.0), and ``importlib`` is called only by ``_need``."""
-    bad, needs = [], []
+    or inside a function, by name or through ``importlib``: the resize paths
+    resample with ``data/resample.py``, so no path of the port reaches
+    them."""
+    bad = []
     for path in _port_files():
         rel = os.path.relpath(path, REPO)
         with open(path) as f:
             tree = ast.parse(f.read(), path)
-        funcs = [n for n in ast.walk(tree)
-                 if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
-        owner = {}  # node -> innermost enclosing function (walked last)
-        for fn in funcs:
-            for n in ast.walk(fn):
-                owner[id(n)] = fn.name
         for node in ast.walk(tree):
             mods = []
             if isinstance(node, ast.Import):
@@ -122,20 +114,11 @@ def test_port_imports_no_pil_opencv_or_sklearn():
             elif isinstance(node, ast.Call):
                 name = getattr(node.func, "id", None) or getattr(
                     node.func, "attr", None)
-                arg = (node.args[0].value if node.args and isinstance(
-                    node.args[0], ast.Constant) else None)
-                if name == "_need":
-                    needs.append((rel, owner.get(id(node)), arg))
-                elif name == "import_module" and owner.get(id(node)) != \
-                        "_need":
-                    bad.append(f"{rel}:{node.lineno} import_module outside "
-                               f"_need")
-                elif name == "__import__" and isinstance(arg, str):
-                    mods = [arg]
+                if name == "import_module":
+                    bad.append(f"{rel}:{node.lineno} import_module")
+                elif name == "__import__" and node.args and isinstance(
+                        node.args[0], ast.Constant):
+                    mods = [node.args[0].value]
             bad += [f"{rel}:{node.lineno} {m}" for m in mods
-                    if m.split(".")[0] in _LAZY_ONLY]
+                    if m.split(".")[0] in _BANNED]
     assert not bad, bad
-    assert needs, "the resize paths' lazy imports were not found"
-    for rel, fn, mod in needs:
-        assert fn in _RESIZERS and mod in ("PIL.Image", "cv2"), (rel, fn,
-                                                                 mod)
