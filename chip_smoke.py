@@ -43,7 +43,19 @@ Phases, in order; any failure exits non-zero:
    in-step launches (K-1..K-4 each launched, overflow 0) and captured
    launches replayed as above, and five more steps under the port's
    StepTimer, three of them inside its TraceCapture (a Chrome trace that
-   must exist), the timer's rays/s beside the host clock's; then the LTS
+   must exist), the timer's rays/s beside the host clock's; then
+   (dp_train) data parallelism over two spawned ranks (gloo on one card;
+   NCCL with a card a rank where there are two): each of the six small
+   steps above (the LTS family on the layout-invariant recipe: Fibonacci
+   scattering, eps 0, every march slot selected) on the two ranks' halves
+   of its batch against the same step on one rank over the whole batch
+   (loss terms at rtol 1e-5, each group's gradient within 1e-4 of its
+   max), then the full-width fine step on 4,096 rays a rank: the first
+   step's all-reduced gradients (f32 heads) within 1e-4 of each group's
+   max of the one-device step on all 8,192 rays, the gradient
+   all-reduce's ms, 2 warm-up and 5 timed steps with the config's bf16
+   heads (overflow 0, finite losses, K-1..K-4 launched on each rank), a
+   profile of three more; then the LTS
    train step at full width (cfg/app/lts.yaml, 256^3,
    8,192 rays, 100 LTS points x 256 secondary rays = 25,600; the budgets
    and ball scene of scripts/bench_lts.py) through build_lts_train_step, 2
@@ -122,8 +134,9 @@ Phases, in order; any failure exits non-zero:
    fine -> LTS through esrnerf_tpu_torch.run.main with
    cfg/exp/dtu/97/*.yaml at the configs' widths, each stage finding the
    previous checkpoint by path: 1,000, 60, 12 (the grid rescaled to 256^3
-   at step 6; phase 7's fine budgets and sharpness) and 6 steps (864 /
-   256 phase-1 samples a ray: the config's 256 / 96 drop samples on this
+   at step 6; phase 7's fine budgets and sharpness) and 6 steps (the
+   budget advisor's 256 / 24 primary and 128 / 12 secondary samples a
+   ray: the config's 96 secondary phase-1 samples drop samples on this
    scan), each ending with a test_nv eval (N_vis 1: two
    1200x1200 renders), its mesh and, but for alphamask, the Chamfer
    distance (mesh/CD). Per stage: the datasets' load s and the set-up s,
@@ -142,6 +155,7 @@ the script started), then the kernel table as one JSON object
 (``launches``: the fine step's; ``launches_lts_step``,
 ``launches_pdra_step``, ``launches_finetune_step``: those steps';
 ``launches_grad_step``: the grad-alpha fine step's;
+``launches_dp_step``: rank 0's in the dp phase's full-width fine step;
 ``launches_dtu_step``: per step of each DTU stage),
 the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2751,14 +2765,17 @@ DTU_KERNELS = {"alphamask": CHAIN_KERNELS["alphamask train"],
                "fine": LTS_TRAIN_KERNELS, "lts": LTS_TRAIN_KERNELS}
 DTU_ITERS = {"alphamask": 1000, "coarse": 60, "fine": 12, "lts": 6}
 # fine: FINE_OVERRIDES' budgets and the trainer phase's sharpness, the grid
-# rescaled once to the config's 256^3 half way; LTS: phase 1 budgets of
-# both marches raised from the config's 256 and 96 a ray (the 49-view scan
-# overflowed at 432 and 96)
+# rescaled once to the config's 256^3 half way; LTS: the budget advisor's
+# sizes for this scan (primary 256 masked / 24 head samples a ray,
+# secondary 128 / 12; the config's 96 secondary phase-1 samples overflow on
+# the first step)
 DTU_EXTRA = {
     "fine": [*FINE_OVERRIDES[4:], "app.trainer.s_start=200",
              "app.trainer.pg_scale=[6]"],
-    "lts": ["app.model.points_budget_masked_per_ray=864",
-            "app.model.points_budget_masked_per_2ndray=256"],
+    "lts": ["app.model.points_budget_masked_per_ray=256",
+            "app.model.points_budget_per_ray=24",
+            "app.model.points_budget_masked_per_2ndray=128",
+            "app.model.points_budget_per_2ndray=12"],
 }
 
 
@@ -2883,6 +2900,336 @@ def dtu_stages(device, work, device_line=None, n_views=49, wh=1200,
     return scene, out
 
 
+# ------------------------------------------ the data-parallel phase (dp)
+
+# two ranks: on one card over gloo (the driver's machine has one), one card
+# a rank over NCCL where there are two
+DP_RANKS = 2
+DP_TIMEOUT_S = 240  # a collective that waits longer raises: no hang
+# head samples a ray raised 16 -> 24 for the small steps: a rank's block of
+# 32 of the 64 rays overflows its own budget at 16 (the whole batch does
+# not)
+DP_BUDGET = ["app.model.points_budget_per_ray=24"]
+# the LTS-family steps' layout-invariant recipe (the JAX package's
+# tests/test_parallel.py): Fibonacci scattering, eps 0, every slot of the
+# march selected (num_ltspts = rays x head budget), smoothness weight 0
+DP_RECIPE = [*SMALL_ESR, *DP_BUDGET, "app.model.ray_sampling=fib",
+             "app.trainer.normal_eps=0.0", "app.trainer.emit_eps=0.0",
+             "app.trainer.weight_normal_smooth=0.0",
+             f"app.model.num_ltspts={64 * 24}"]
+DP_FT_PPR = 8
+DP_KINDS = ("fine", "alphamask", "coarse", "lts", "pdra", "finetune")
+# loss-term positions in each small step's aux
+DP_TERMS = {"fine": [0, 1], "alphamask": [0], "coarse": [0],
+            "lts": [0, 1, 2, 3], "pdra": [0, 1, 2, 3, 9, 10, 11],
+            "finetune": [0]}
+
+
+def dp_small_step(kind, device, sh, seed=0):
+    """One small step of ``kind`` (the check phases' set-ups, the LTS
+    family on the layout-invariant recipe) on the rank's block of its
+    64-ray batch with the ranks' helpers ``sh`` (the one-device step with
+    the world-1 helpers); returns the step's (all-reduced) gradients on the
+    CPU and its aux."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.alphamask import build_alphamask_train_step
+    from esrnerf_tpu_torch.apps.coarse import build_coarse_train_step
+    from esrnerf_tpu_torch.apps.fine import build_fine_train_step
+    from esrnerf_tpu_torch.apps.lts import build_lts_train_step
+    from esrnerf_tpu_torch.apps.pdra import (build_finetune_step,
+                                             build_pdra_train_step)
+    from esrnerf_tpu_torch.config import load_cfg
+    from esrnerf_tpu_torch.models.dvgo import DVGO
+    from esrnerf_tpu_torch.models.voxurfc import VoxurfC
+    from esrnerf_tpu_torch.parallel.mesh import shard_rows
+
+    rows = lambda b: {k: shard_rows(v, sh.rank, sh.n) for k, v in b.items()}
+    rng = np.random.default_rng(seed)
+    cpu = torch.Generator().manual_seed(seed)
+    if kind == "fine":
+        cfg, model = build_fine(device, 32**3, [
+            "app.model.rgbnet_width=32", "app.model.rgbnet_depth=2",
+            "app.model.tonemap_width=32", "system.compute_dtype=float32",
+            *DP_BUDGET], mask_res=16)
+        params = model.init_params(cpu)
+        for g in ("off_color", "emo_color"):
+            params[g] = torch.as_tensor(rng.normal(
+                scale=0.3, size=params[g].shape).astype(np.float32))
+        a = step_args(cfg, 3, 64)
+        step = build_fine_train_step(model, _GradsOut(), cfg, device=device,
+                                     sh=sh)
+        out = step(_to(params, device), None, rows(make_batch(seed, 64,
+                                                              device)),
+                   a["s_val"], a["lr_scales"], a["tv_flag"],
+                   a["smooth_grad_tv"], a["sdf_tv_w"], a["tv_dense"])
+    elif kind in ("alphamask", "coarse"):
+        base = ["app.phase=train", "data.cls=x", "data.root=x",
+                "data.scene=x", "system.compute_dtype=float32",
+                "app.model.num_voxels=32768"]
+        batch = rows(make_batch(seed, 64, device))
+        if kind == "alphamask":
+            cfg = load_cfg("cfg/app/alphamask.yaml", base, root_dir=REPO)
+            model = DVGO(cfg, 0.5, 4.0, [-1] * 3, [1] * 3, device=device)
+            params = model.init_params()
+            params["density"] = torch.as_tensor(rng.normal(
+                12.0, 3.0, params["density"].shape).astype(np.float32))
+            for g in ("off_color", "emo_color"):
+                params[g] = torch.as_tensor(rng.normal(
+                    size=params[g].shape).astype(np.float32))
+            params = _to(params, device)
+            shift = torch.as_tensor(rng.uniform(size=(64, 1)).astype(
+                np.float32), device=device)
+            per_lr = {"density": torch.full_like(params["density"], 0.5)}
+            out = build_alphamask_train_step(
+                model, _GradsOut(), cfg, device=device, sh=sh)(
+                params, None, batch, 1.0, per_lr,
+                rand_shift=shard_rows(shift, sh.rank, sh.n))
+            out = (out[0], out[1], (out[2],))
+        else:
+            cfg = load_cfg("cfg/app/coarse.yaml",
+                           base + ["app.model.rgbnet_width=32"],
+                           root_dir=REPO)
+            model = VoxurfC(cfg, 0.5, 4.0, [-1] * 3, [1] * 3,
+                            _ball_mask_cache(device), s_val=20.0)
+            params = model.init_params(cpu)
+            for g in ("off_color", "emo_color"):
+                params[g] = torch.as_tensor(rng.normal(
+                    scale=0.3, size=params[g].shape).astype(np.float32))
+            out = build_coarse_train_step(
+                model, _GradsOut(), cfg, device=device, sh=sh)(
+                _to(params, device), None, batch, 20.0,
+                {k: 1.0 for k in params}, 1.0, 0.1, 0.05)
+    else:
+        build = build_lts if kind == "lts" else build_pdra
+        extra = DP_RECIPE + ([f"app.model.num_ltspts={64 * DP_FT_PPR}"]
+                             if kind == "finetune" else [])
+        cfg, model = build(device, 32**3, extra, mask_res=16)
+        model.lts_points_divisor = sh.n
+        params = _to(_small_esr_params(model, seed), device)
+        gen = sh.fold_generator(device, seed, 0)
+        if kind == "finetune":
+            b = make_ft_batch(seed, 64, device)
+            trainable, frozen = ft_split(params)
+            p, ok, _ = model.geo.march_ray_slots(
+                frozen["sdf"], b["rays_o"], b["rays_d"], b["viewdirs"],
+                40.0, model.fastcolor_thres, model.neus_alpha, DP_FT_PPR)
+            b.update(ft_pts=p, ft_valid=ok)
+            b = rows(b)
+            out = build_finetune_step(model, _GradsOut(), FT_WEIGHT, sh)(
+                trainable, None, frozen, b, 40.0, generator=gen,
+                ft_pts=b["ft_pts"], ft_valid=b["ft_valid"])
+        else:
+            b = rows(make_lts_batch(seed, 64, device) if kind == "lts"
+                     else make_pdra_batch(seed, 32, device))
+            step = (build_lts_train_step if kind == "lts"
+                    else build_pdra_train_step)(model, _GradsOut(), cfg,
+                                                device=device, sh=sh)
+            out = step(params, None, b, 40.0, {k: 1.0 for k in params},
+                       1.0, 0.05, 1e-4, True, generator=gen)
+    grads, _, aux = out
+    return _to(grads, "cpu"), [float(x) for x in aux]
+
+
+def dp_full_width(device, sh, warmup=2, timed=5):
+    """The fine step at full width (``train_full_width``'s set-up: 256^3,
+    192-wide heads, 8,192 rays) on the rank's 8,192 / n rays: the first
+    step's all-reduced gradients with f32 heads (against the one-device
+    step on all 8,192 rays, on rank 0: bf16 heads round the two layouts'
+    partial sums apart), the gradient all-reduce's ms (host clock around a
+    synchronised call, five calls); then, with the config's bf16 heads as
+    the train phase, ``warmup`` + ``timed`` Adam steps (synchronised host
+    clock; overflow and losses), launches, peak memory and a profile of
+    three more steps."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.fine import build_fine_train_step
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.optim import Adam
+    from esrnerf_tpu_torch.parallel.mesh import ShardHelpers, shard_rows
+
+    cfg, model = build_fine(device, NUM_VOXELS,
+                            ["system.compute_dtype=float32"])
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    batches = [make_batch(i, N_RAYS, device) for i in range(4)]
+    local = [{k: shard_rows(v, sh.rank, sh.n) for k, v in b.items()}
+             for b in batches]
+
+    def args(i):
+        a = step_args(cfg, i, N_RAYS)
+        return (a["s_val"], a["lr_scales"], a["tv_flag"],
+                a["smooth_grad_tv"], a["sdf_tv_w"], a["tv_dense"])
+
+    out = {}
+    grads = build_fine_train_step(model, _GradsOut(), cfg, device=device,
+                                  sh=sh)(params, None, local[0], *args(0))[0]
+    if sh.rank == 0:
+        want = build_fine_train_step(
+            model, _GradsOut(), cfg, device=device, sh=ShardHelpers())(
+            params, None, batches[0], *args(0))[0]
+        out["first_step_grad_err_rel"] = assert_grads_close(
+            _to(want, "cpu"), grads)
+        del want
+    ar = []
+    for _ in range(5):
+        sync(device)
+        t0 = time.perf_counter()
+        sh.all_reduce_grads(grads)
+        sync(device)
+        ar.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = float(np.median(ar))
+    out["allreduce_ms_all"] = ar
+    out["allreduce_mb"] = sum(
+        g.numel() * g.element_size()
+        for g in (v for gg in grads.values()
+                  for v in (gg.values() if isinstance(gg, dict) else [gg]))
+    ) / 2**20
+    del grads, model
+
+    cfg, model = build_fine(device, NUM_VOXELS)
+    opt = Adam(dict(cfg.app.trainer.lrs))
+    state = opt.init(params)
+    step = build_fine_train_step(model, opt, cfg, device=device, sh=sh)
+
+    def run(i):
+        nonlocal params, state
+        params, state, aux = step(params, state, local[i % 4], *args(i))
+        return aux
+
+    for i in range(warmup):
+        run(i)
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    times, auxes = [], []
+    for i in range(timed):
+        t0 = time.perf_counter()
+        auxes.append(run(warmup + i))
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.launches)
+    aux = torch.stack([torch.stack(a) for a in auxes]).cpu().numpy()
+    if not np.isfinite(aux).all():
+        raise AssertionError(f"dp rank {sh.rank}: non-finite losses {aux}")
+    if aux[:, 2].max() != 0.0:
+        raise AssertionError(f"dp rank {sh.rank}: march overflow "
+                             f"{aux[:, 2].max()}")
+    missing = [k for k in _CAPTURED if launches[k] == 0]
+    if missing and device.type == "cuda":
+        raise AssertionError(f"dp rank {sh.rank}: kernels not launched: "
+                             f"{missing}")
+    prof = profile_steps(device, lambda i: run(50 + i))
+    out.update({
+        "rays_per_rank": N_RAYS // sh.n, "timed_steps": timed,
+        "step_ms_median": float(np.median(times)), "step_ms_all": times,
+        "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+        "device_launches_per_step": prof["device_launches_per_step"],
+        "allreduce_phase_device_ms": prof["phases_ms_per_step"].get(
+            "fine/grad_allreduce", {}).get("device_ms"),
+        "allreduce_phase_host_ms": prof["phases_ms_per_step"].get(
+            "fine/grad_allreduce", {}).get("host_ms"),
+        "launches_per_step": {k: v / timed for k, v in launches.items()
+                              if v},
+        "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                     if device.type == "cuda" else None),
+        "mse_first": float(aux[0, 0]), "mse_last": float(aux[-1, 0]),
+        "overflow_max": float(aux[:, 2].max()),
+        "k1_frac_max": float(aux[:, 3].max()),
+        "k2_frac_max": float(aux[:, 4].max()),
+    })
+    return out
+
+
+def _dp_rank(rank, n, init, backend, outq):
+    """One rank of the dp phase, spawned: joins the group, runs the small
+    steps (rank 0 also the one-device steps, held to the ranks'), then the
+    full-width fine step; puts its result (or its traceback) on
+    ``outq``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, REPO)
+        from esrnerf_tpu_torch.parallel.mesh import ShardHelpers
+
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            backend, init_method=init, rank=rank, world_size=n,
+            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+        sh = ShardHelpers(n, rank, backend=backend)
+        res = {"rank": rank, "device": str(device), "small": {}}
+        for kind in DP_KINDS:
+            g, aux = dp_small_step(kind, device, sh)
+            if rank == 0:
+                g1, aux1 = dp_small_step(kind, device, ShardHelpers())
+                t = DP_TERMS[kind]
+                np.testing.assert_allclose([aux[i] for i in t],
+                                           [aux1[i] for i in t], rtol=1e-5)
+                res["small"][kind] = {
+                    "loss": aux[0], "loss_one_device": aux1[0],
+                    "max_grad_err_rel": assert_grads_close(g1, g)}
+            sh.barrier()
+        res.update(dp_full_width(device, sh))
+        dist.destroy_process_group()
+        outq.put((rank, True, res))
+    except BaseException:  # the parent raises it
+        outq.put((rank, False, traceback.format_exc()))
+
+
+def dp_train(work, n=DP_RANKS):
+    """The dp phase: ``n`` spawned ranks (gloo on one card, NCCL with a
+    card each), a ``file://`` rendezvous in ``work``; returns each rank's
+    result. A rank's failure raises here; every rank is joined (or
+    killed)."""
+    import multiprocessing as mp
+    import queue
+
+    import torch
+
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= n else "gloo"
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    init = "file://" + os.path.join(work, "dp_rendezvous")
+    procs = [ctx.Process(target=_dp_rank, args=(r, n, init, backend, outq))
+             for r in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < n:
+            try:
+                rank, ok, val = outq.get(timeout=5.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and r not in got]
+                if dead:
+                    raise AssertionError(f"dp ranks {dead} died")
+                if time.perf_counter() - t0 > 4 * DP_TIMEOUT_S:
+                    raise AssertionError("dp phase outlasted its limit")
+                continue
+            if not ok:
+                raise AssertionError(f"dp rank {rank} failed:\n{val}")
+            got[rank] = val
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return {"backend": backend, "ranks_n": n, "cards": count,
+            "seconds": time.perf_counter() - t0,
+            "ranks": [got[r] for r in range(n)]}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2973,6 +3320,11 @@ def main() -> int:
     del res, captured
     torch.cuda.empty_cache()
 
+    with tempfile.TemporaryDirectory(prefix="esr_dp_") as work:
+        dp = dp_train(work)
+    emit({"phase": "dp_train", **dp, "device": smi})
+    dp_launches = dp["ranks"][0]["launches_per_step"]
+
     res, lts_launches, captured, (model, params) = train_lts_full_width(
         device, NUM_VOXELS, N_RAYS)
     res["device"] = smi
@@ -3052,6 +3404,7 @@ def main() -> int:
         r["launches_pdra_step"] = pdra_launches.get(r["name"], 0)
         r["launches_finetune_step"] = ft_launches.get(r["name"], 0)
         r["launches_grad_step"] = grad_launches.get(r["name"], 0)
+        r["launches_dp_step"] = dp_launches.get(r["name"], 0)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="esr_smoke_") as work:

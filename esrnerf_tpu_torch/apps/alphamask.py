@@ -1,13 +1,14 @@
 """Stage 1 trainer, AlphaMask: low-resolution DVGO occupancy pretraining.
 
-Port of ``esrnerf_tpu/apps/alphamask.py`` for one device. The train step
+Port of ``esrnerf_tpu/apps/alphamask.py``. The train step
 (:func:`build_alphamask_train_step`): ``DVGO.forward_training`` -> MSE plus
-the last-transmittance entropy plus the per-point colour loss -> backward
--> Adam with a per-voxel density LR. The trainer (:class:`AlphaMask`): the
-camera-frustum bbox, the near-camera and view-count density masks, the
-exponential LR decay, logging, eval and checkpoints in the JAX package's
-schema (either package resumes the other's, and the coarse stage of either
-starts from them).
+the last-transmittance entropy plus the per-point colour loss, each a
+global mean over the ranks at world > 1 -> backward -> gradient
+all-reduce -> Adam with a per-voxel density LR. The trainer
+(:class:`AlphaMask`): the camera-frustum bbox, the near-camera and
+view-count density masks, the exponential LR decay, logging, eval and
+checkpoints in the JAX package's schema (either package resumes the
+other's, and the coarse stage of either starts from them).
 """
 
 from __future__ import annotations
@@ -28,40 +29,46 @@ from esrnerf_tpu_torch.config import save_cfg
 from esrnerf_tpu_torch.data.sampler import BatchSampler
 from esrnerf_tpu_torch.models.dvgo import DVGO
 from esrnerf_tpu_torch.optim import Adam, exp_decay_factor, make_pervoxel_lr
+from esrnerf_tpu_torch.parallel.mesh import ShardHelpers, shard_rows
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import loss2psnr
 
 
-def entropy_last(alphainv_last: torch.Tensor) -> torch.Tensor:
+def entropy_last(alphainv_last: torch.Tensor,
+                 mean: Callable = torch.mean) -> torch.Tensor:
     """Mean binary entropy of the last transmittance, clipped to
-    ``[1e-6, 1 - 1e-6]``."""
+    ``[1e-6, 1 - 1e-6]``; ``mean`` reduces it (a global mean over the
+    ranks: ``ShardHelpers.gmean``)."""
     p = torch.clamp(alphainv_last, 1e-6, 1 - 1e-6)
-    return (-(p * torch.log(p) + (1 - p) * torch.log(1 - p))).mean()
+    return mean(-(p * torch.log(p) + (1 - p) * torch.log(1 - p)))
 
 
 def alphamask_loss(model: DVGO, params, batch, *, w_ent: float,
                    w_rgbper: float, white_bg: float, generator=None,
-                   rand_shift=None):
+                   rand_shift=None, sh: ShardHelpers = ShardHelpers()):
     """``mse + w_ent * entropy(last transmittance) + w_rgbper *
-    per-point colour loss`` (the point weights carry no gradient there).
-    Returns ``(loss, mse)``."""
+    per-point colour loss`` (the point weights carry no gradient there),
+    each a mean over the global batch (``sh``). Returns ``(loss, mse)``."""
     res = model.forward_training(params, batch["rays_o"], batch["rays_d"],
                                  batch["em_modes"], generator=generator,
                                  rand_shift=rand_shift)
     rgbs = batch["rgbs"]
     pred = torch.clamp(res["srgb/rgb"] + res["etc/white_bg"] * white_bg,
                        0.0, 1.0)
-    mse = ((pred - rgbs) ** 2).mean()
-    ent = entropy_last(res["etc/alphainv_cum"][..., -1])
+    mse = sh.gmean((pred - rgbs) ** 2)
+    ent = entropy_last(res["etc/alphainv_cum"][..., -1], mean=sh.gmean)
     rgbper = ((res["srgb/raw_rgb"] - rgbs[:, None, :]) ** 2).sum(-1)
-    rgbper_loss = (rgbper * res["etc/weights"].detach()).sum(-1).mean()
+    rgbper_loss = sh.gmean((rgbper * res["etc/weights"].detach()).sum(-1))
     return mse + w_ent * ent + w_rgbper * rgbper_loss, mse
 
 
-def build_alphamask_train_step(model: DVGO, opt: Adam, cfg,
-                               device="cuda") -> Callable:
-    """The alphamask train step for one device.
+def build_alphamask_train_step(model: DVGO, opt: Adam, cfg, device="cuda",
+                               sh: ShardHelpers = ShardHelpers()
+                               ) -> Callable:
+    """The alphamask train step, on one device or (``sh`` of a world of
+    ranks) data-parallel over the ranks' blocks of the batch (the MSE
+    global, the gradients summed over the ranks before Adam).
 
     Returns ``train_step(params, opt_state, batch, lr_scale, per_lr,
     generator=None, rand_shift=None) -> (params, opt_state, mse)``: one
@@ -84,8 +91,8 @@ def build_alphamask_train_step(model: DVGO, opt: Adam, cfg,
                    generator=None, rand_shift=None):
         mse, grads = loss_and_grads(
             lambda p: alphamask_loss(model, p, batch, generator=generator,
-                                     rand_shift=rand_shift, **kw),
-            params, "alphamask")
+                                     rand_shift=rand_shift, sh=sh, **kw),
+            params, "alphamask", sh)
         with record_function("alphamask/adam"):
             params, opt_state = opt.step(
                 params, grads, opt_state,
@@ -224,8 +231,12 @@ class AlphaMask(AppClass):
 
     def learn(self) -> None:
         decay = exp_decay_factor(self.lr_decay)
+        self.check_shardable(self.train_bs)
         step_fn = build_alphamask_train_step(self.renderer, self.opt,
-                                             self.cfg, device=self.device)
+                                             self.cfg, device=self.device,
+                                             sh=self.shard_helpers())
+        # one stream on every rank: each draws the global batch's sample
+        # shifts and keeps its rows, as one device would draw them
         gen = step_generator(self.device, self.cfg.system["seed"],
                              self.global_step)
         ckpt_dir = self.ckpt_dir()
@@ -238,9 +249,12 @@ class AlphaMask(AppClass):
         pbar = self.tqdm(range(self.global_step, self.n_iters), colour="green")
         for self.global_step in pbar:
             batch = self.place_batch(self.sampler.sample())
+            shift = torch.rand((self.train_bs, 1), generator=gen,
+                               device=self.device)
             self.params, self.opt_state, mse = step_fn(
                 self.params, self.opt_state, batch, self.lr_scale,
-                self.per_lr, generator=gen)
+                self.per_lr, rand_shift=shard_rows(
+                    shift, self.world.rank, self.world.n))
             self.lr_scale *= decay
             n_since += 1
 
@@ -268,12 +282,13 @@ class AlphaMask(AppClass):
                 self.evaluate(self.N_vis)
             if self.global_step % self.save_every == self.save_every - 1 or last_it:
                 self.save(ckpt_path)
-                if self.save_all:
+                if self.save_all and self.is_writer:
                     shutil.copy2(ckpt_path, os.path.join(
                         ckpt_dir, f"{self.pretty_global_step}.ckpt"))
 
         self.cfg.app["eval"]["ckpt"] = ckpt_path
-        save_cfg(self.cfg)
+        if self.is_writer:
+            save_cfg(self.cfg)
 
     def save(self, path: str) -> None:
         self.save_timed(path, {

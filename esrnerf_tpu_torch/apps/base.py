@@ -1,16 +1,24 @@
-"""Stage-trainer base class for one device.
+"""Stage-trainer base class.
 
-Port of ``esrnerf_tpu/apps/base.py`` without the mesh and sharding
-helpers. A stage owns ``load_dataset() / load_model() / process()`` plus
-its train loop, losses, eval and checkpoints. Shared here: the device
-(``system.device``: ``cpu``, or else CUDA), batch placement through pinned
-host memory, the loss-and-gradient helper of the train steps
-(:func:`loss_and_grads`), checkpoint path resolution (resume first, then
-the explicit checkpoint, then the previous stage's by path substitution),
-timed checkpoint writes, the eval retry on march-budget overflow, the
-one-shot budget autotune, chunked eval rendering with the white-background
-composite and the sRGB metrics, the eval artifact layout (``text/ image/
-video/ mesh/`` under the log dir) and media writing.
+Port of ``esrnerf_tpu/apps/base.py``. A stage owns ``load_dataset() /
+load_model() / process()`` plus its train loop, losses, eval and
+checkpoints. Shared here: the device (``system.device``: ``cpu``, or else
+CUDA), batch placement through pinned host memory, the loss-and-gradient
+helper of the train steps (:func:`loss_and_grads`), checkpoint path
+resolution (resume first, then the explicit checkpoint, then the previous
+stage's by path substitution), timed checkpoint writes, the eval retry on
+march-budget overflow, the one-shot budget autotune, chunked eval rendering
+with the white-background composite and the sRGB metrics, the eval
+artifact layout (``text/ image/ video/ mesh/`` under the log dir) and
+media writing.
+
+Data parallelism (:mod:`esrnerf_tpu_torch.parallel.mesh`, a world of more
+than one rank under ``torchrun``): :meth:`AppClass.place_batch` keeps the
+rank's block of a batch's rows, the train steps fold their losses and
+gradients with :meth:`AppClass.shard_helpers`, the eval sweeps split each
+chunk over the ranks and gather the rows back
+(:meth:`AppClass.run_chunk`), and rank 0 alone writes logs, checkpoints and
+eval files. At world 1 none of it adds a launch.
 
 There is no compile cache: the march reads its budgets from the live
 renderer at every call, so a scaled or autotuned budget takes effect on
@@ -30,9 +38,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from esrnerf_tpu_torch.parallel.mesh import (ShardHelpers,
+                                            check_parallel_cfg,
+                                            current_world, shard_rows)
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import png
-from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.logging import Logger, tqdm_safe
 from esrnerf_tpu_torch.utils.metrics import loss2psnr, rgb_lpips, rgb_ssim
 
@@ -41,13 +51,6 @@ def import_class(class_path: str) -> Any:
     module_name, cls_name = class_path.rsplit(".", 1)
     module = __import__(module_name, fromlist=[cls_name])
     return getattr(module, cls_name)
-
-
-def device_from_cfg(cfg) -> torch.device:
-    """``system.device`` ``cpu`` -> the CPU; anything else (``cuda``, the
-    JAX configs' ``tpu``, unset) -> CUDA, which raises without a GPU."""
-    dev = str(cfg.system.get("device") or "cuda").lower()
-    return resolve_device("cpu" if dev.startswith("cpu") else "cuda")
 
 
 def tree_leaves(tree, prefix=()) -> List[Tuple[tuple, torch.Tensor]]:
@@ -70,12 +73,15 @@ def tree_unflatten(paths, values) -> Dict:
     return out
 
 
-def loss_and_grads(loss_fn: Callable, params, tag: str):
+def loss_and_grads(loss_fn: Callable, params, tag: str,
+                   sh: Optional[ShardHelpers] = None):
     """``loss_fn(p) -> (loss, aux)`` on a differentiable copy of the
     parameter tree; returns ``(aux, grads)`` with ``grads`` shaped like
     ``params`` (zeros where a leaf got no gradient). The loss and the
     backward run inside ``record_function`` ranges ``<tag>/loss`` and
-    ``<tag>/backward``."""
+    ``<tag>/backward``. On a world of ranks (``sh``) the gradients are then
+    summed over the ranks (``<tag>/grad_allreduce``): ``loss_fn`` folds its
+    terms with ``sh`` (recipe B), so the sum is the global gradient."""
     flat = tree_leaves(params)
     paths = [p for p, _ in flat]
     leaves = [t.detach().requires_grad_(True) for _, t in flat]
@@ -83,8 +89,12 @@ def loss_and_grads(loss_fn: Callable, params, tag: str):
         loss, aux = loss_fn(tree_unflatten(paths, leaves))
     with record_function(f"{tag}/backward"):
         gl = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return aux, tree_unflatten(paths, [torch.zeros_like(t) if g is None
-                                       else g for t, g in zip(leaves, gl)])
+    grads = tree_unflatten(paths, [torch.zeros_like(t) if g is None
+                                   else g for t, g in zip(leaves, gl)])
+    if sh is not None and sh.n > 1:
+        with record_function(f"{tag}/grad_allreduce"):
+            sh.all_reduce_grads(grads)
+    return aux, grads
 
 
 def composite_white_bg(imgs: Dict[str, np.ndarray],
@@ -120,7 +130,11 @@ class AppClass:
         self.white_bg = float(cfg.data["white_bg"])
         self.global_step = int(cfg.get("global_step", 0))
         self.logger: Optional[Logger] = None
-        self.device = device_from_cfg(cfg)
+        self.world = current_world(cfg)
+        check_parallel_cfg(cfg, self.world.n)
+        self.device = self.world.device
+        self._sh = ShardHelpers(self.world.n, self.world.rank,
+                                backend=self.world.backend)
         # wall-clock seconds of the last eval, mesh and checkpoint
         self.timings: Dict[str, float] = {}
 
@@ -141,17 +155,81 @@ class AppClass:
     def pretty_global_step(self) -> str:
         return f"{self.global_step:010}"
 
-    def to_device(self, array: np.ndarray) -> torch.Tensor:
+    # ---------------------------------------------------------- parallelism
+
+    @property
+    def parallel_mode(self) -> str:
+        """'single' (one rank) or 'shard_map' (data-parallel ranks)."""
+        return "single" if self.world.n == 1 else "shard_map"
+
+    @property
+    def num_shards(self) -> int:
+        return self.world.n
+
+    @property
+    def is_writer(self) -> bool:
+        """Rank 0 writes logs, checkpoints and eval files."""
+        return self.world.is_writer
+
+    def shard_helpers(self) -> ShardHelpers:
+        """The cross-rank reductions of the train-step bodies (the identity
+        at world 1)."""
+        return self._sh
+
+    def check_shardable(self, batch_size: int) -> None:
+        if self.parallel_mode == "shard_map" and batch_size % self.num_shards:
+            raise ValueError(
+                f"batch_size={batch_size} not divisible by "
+                f"{self.num_shards} shards; adjust app.trainer.batch_size "
+                "or set system.parallel=gspmd")
+
+    def to_device(self, array) -> torch.Tensor:
         """Host array -> tensor on the device. On CUDA it goes through
         pinned memory with a non-blocking copy, so the host never waits on
-        the stream for it."""
+        the stream for it. A tensor is moved as it is."""
+        if isinstance(array, torch.Tensor):
+            return array.to(self.device)
         t = torch.from_numpy(np.ascontiguousarray(array))
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def place_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: self.to_device(v) for k, v in batch.items()}
+        """A host batch on the device: the rank's contiguous block of its
+        rows on a world of ranks (every rank samples the same global
+        batch)."""
+        n, r = self.world.n, self.world.rank
+        return {k: self.to_device(shard_rows(v, r, n))
+                for k, v in batch.items()}
+
+    def place_ray_chunk(self, *arrays) -> Tuple[List[torch.Tensor], bool]:
+        """``(tensors on the device, split)`` for one eval chunk (leading dim
+        = rays or points): the rank's block of the rows when every array's
+        rows divide over the ranks, else the whole chunk on every rank (a
+        ragged tail)."""
+        n, r = self.world.n, self.world.rank
+        split = n > 1 and all(a.shape[0] % n == 0 for a in arrays)
+        return ([self.to_device(shard_rows(a, r, n) if split else a)
+                 for a in arrays], split)
+
+    def gather_rows(self, out: Dict[str, torch.Tensor],
+                    split: bool) -> Dict[str, torch.Tensor]:
+        """The outputs of a split chunk put back together on every rank:
+        each row output gathered in rank order, each 0-d output (an
+        overflow) the maximum over the ranks."""
+        if not split:
+            return out
+        sh = self._sh
+        return {k: sh.gmax(v) if v.dim() == 0 else sh.gather_rows(v)
+                for k, v in out.items()}
+
+    def run_chunk(self, fn: Callable, *arrays) -> Dict[str, torch.Tensor]:
+        """``fn(*tensors) -> {name: rows or 0-d}`` over one eval chunk,
+        data-parallel (:meth:`place_ray_chunk`, :meth:`gather_rows`).
+        ``fn`` runs on the rank alone (no collective inside it, so its
+        retries may differ between ranks); every rank gets every row."""
+        args, split = self.place_ray_chunk(*arrays)
+        return self.gather_rows(fn(*args), split)
 
     def scaled_budgets(self, scale: int):
         """Context: the marches' compaction budgets (primary, and the
@@ -274,15 +352,18 @@ class AppClass:
         return bool(changed)
 
     def get_logger(self) -> Logger:
+        """The run's logger; silent on ranks other than 0."""
         if self.logger is None:
-            self.logger = Logger(self.cfg)
+            self.logger = Logger(self.cfg, enabled=self.is_writer)
         return self.logger
 
     def ckpt_dir(self) -> str:
         """The checkpoint dir, with a ``checkpoints`` symlink to it in the
-        log dir."""
+        log dir (made by rank 0)."""
         link = os.path.join(self.cfg.log["dir"], "checkpoints")
         real = os.path.abspath(self.cfg.log["ckpt_dir"])
+        if not self.is_writer:
+            return real
         os.makedirs(real, exist_ok=True)
         if not os.path.exists(link):
             os.makedirs(os.path.dirname(link), exist_ok=True)
@@ -317,29 +398,33 @@ class AppClass:
         return cand
 
     def save_timed(self, path: str, payload: Dict[str, Any]) -> None:
-        """Write a checkpoint; its seconds and bytes go to ``timings`` and
-        the log."""
-        t0 = time.perf_counter()
-        ckpt_io.save_checkpoint(path, payload)
-        self.timings["ckpt_s"] = time.perf_counter() - t0
-        self.timings["ckpt_bytes"] = os.path.getsize(path)
-        self.get_logger().log({f"train/metric/etc/{k}": v
-                               for k, v in self.timings.items()
-                               if k.startswith("ckpt")},
-                              step=self.global_step)
+        """Write a checkpoint (rank 0; every rank waits for it, so a resume
+        on any rank finds the file); its seconds and bytes go to
+        ``timings`` and the log."""
+        if self.is_writer:
+            t0 = time.perf_counter()
+            ckpt_io.save_checkpoint(path, payload)
+            self.timings["ckpt_s"] = time.perf_counter() - t0
+            self.timings["ckpt_bytes"] = os.path.getsize(path)
+            self.get_logger().log({f"train/metric/etc/{k}": v
+                                   for k, v in self.timings.items()
+                                   if k.startswith("ckpt")},
+                                  step=self.global_step)
+        self._sh.barrier()
 
     def render_image(self, data: Dict[str, np.ndarray],
                      keys: Sequence[str], fwd: Callable) -> Dict[str, np.ndarray]:
         """One test image through ``fwd(*chunk)`` in chunks of
         ``eval_bs`` rays, where ``chunk`` holds the image's ``keys`` on the
-        device. Returns each output as an ``[H, W]`` or ``[H, W, C]``
-        array; an ``etc/overflow`` output is tracked and left out."""
+        device (the rank's block of them, :meth:`run_chunk`). Returns each
+        output as an ``[H, W]`` or ``[H, W, C]`` array; an ``etc/overflow``
+        output is tracked and left out."""
         width, height = self.test_dataset.image_size
         n = len(data["rgbs"])
         results: Dict[str, List[np.ndarray]] = {}
         for st in range(0, n, self.eval_bs):
             en = min(st + self.eval_bs, n)
-            out = fwd(*(self.to_device(data[k][st:en]) for k in keys))
+            out = self.run_chunk(fwd, *(data[k][st:en] for k in keys))
             ovf = out.pop("etc/overflow", None)
             if ovf is not None:
                 self.track_overflow(ovf)
@@ -365,10 +450,13 @@ class AppClass:
         return ckpt
 
     def eval_dirs(self) -> Dict[str, str]:
+        """The eval's ``text/ image/ video/ mesh/`` dirs (made by rank
+        0)."""
         dirs = {}
         for kind in ("text", "image", "video", "mesh"):
             d = os.path.join(self.cfg.log["dir"], kind, self.pretty_global_step)
-            os.makedirs(d, exist_ok=True)
+            if self.is_writer:
+                os.makedirs(d, exist_ok=True)
             dirs[kind] = d
         return dirs
 
@@ -389,7 +477,9 @@ class AppClass:
     ) -> None:
         """One PNG per image per key, one video per key where imageio
         imports, and ``mean.txt`` with the metrics' means and per-image
-        rows."""
+        rows (rank 0)."""
+        if not self.is_writer:
+            return
         for k, v in renders.items():
             rdir = os.path.join(dirs["image"], *k.split("/"))
             os.makedirs(rdir, exist_ok=True)

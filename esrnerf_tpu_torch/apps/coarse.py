@@ -1,10 +1,11 @@
 """Stage 2 trainer, Coarse: VoxurfC SDF pretraining.
 
-Port of ``esrnerf_tpu/apps/coarse.py`` for one device. The train step
+Port of ``esrnerf_tpu/apps/coarse.py``. The train step
 (:func:`build_coarse_train_step`): ``VoxurfC.forward_training`` -> MSE plus
 the entropy term plus (on TV steps) the density and colour TV -> backward
--> per-group Adam. The trainer (:class:`Coarse`): the bbox shrunk to the
-alphamask stage's occupied voxels, found by path substitution or given as
+-> gradient all-reduce over the ranks (at world > 1) -> per-group Adam.
+The trainer (:class:`Coarse`): the bbox shrunk to the alphamask stage's
+occupied voxels, found by path substitution or given as
 ``app.trainer.ckpt``; the DVGO-style training-ray filter against its mask
 cache; the NeuS sharpness schedule; the exponential LR decay with the
 ``decay_steps`` and the ``tv_updates`` keyed by step; the budget autotune;
@@ -32,6 +33,7 @@ from esrnerf_tpu_torch.data.sampler import BatchSampler
 from esrnerf_tpu_torch.models.voxurf_base import make_mask_cache
 from esrnerf_tpu_torch.models.voxurfc import VoxurfC
 from esrnerf_tpu_torch.optim import Adam, exp_decay_factor
+from esrnerf_tpu_torch.parallel.mesh import ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import mesh as meshutil
 from esrnerf_tpu_torch.utils.device import resolve_device
@@ -58,30 +60,35 @@ def compute_bbox_by_coarse_geo(mask_xyz_min, mask_xyz_max, density,
 
 def coarse_loss(model: VoxurfC, params, batch, s_val, tv_flag, sdf_tv,
                 smooth_grad_tv, *, w_ent: float, w_tvd: float, w_tvc: float,
-                white_bg: float):
+                white_bg: float, sh: ShardHelpers = ShardHelpers()):
     """``mse + w_ent * entropy + tv_flag * (w_tvd * density TV + w_tvc *
     colour TV)``. The entropy term reads the batch's last ray only: the
-    reference indexes ``[..., -1]`` into the per-ray transmittance. Returns
+    reference indexes ``[..., -1]`` into the per-ray transmittance (on a
+    world of ranks the global last ray, on the last rank). ``sh`` folds
+    the terms over the ranks (the TV divided by the world). Returns
     ``(loss, (mse, overflow, k1_frac, k2_frac))``."""
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], s_val)
     pred = torch.clamp(res["srgb/rgb"] + res["etc/white_bg"] * white_bg,
                        0.0, 1.0)
-    mse = ((pred - batch["rgbs"]) ** 2).mean()
-    loss = mse + w_ent * entropy_last(res["etc/alphainv_cum"][..., -1])
+    mse = sh.gmean((pred - batch["rgbs"]) ** 2)
+    loss = mse + w_ent * sh.glast(
+        entropy_last(res["etc/alphainv_cum"][..., -1]))
     if tv_flag:
         tv = (w_tvd * model.density_total_variation(params, sdf_tv,
                                                     smooth_grad_tv)
               + w_tvc * model.color_total_variation(params))
-        loss = loss + tv_flag * tv
+        loss = loss + tv_flag * (tv / sh.n if sh.n > 1 else tv)
     return loss, (mse, res["etc/overflow"], res["etc/k1_frac"],
                   res["etc/k2_frac"])
 
 
-def build_coarse_train_step(model: VoxurfC, opt: Adam, cfg,
-                            device="cuda") -> Callable:
-    """The coarse train step for one device.
+def build_coarse_train_step(model: VoxurfC, opt: Adam, cfg, device="cuda",
+                            sh: ShardHelpers = ShardHelpers()) -> Callable:
+    """The coarse train step, on one device or (``sh`` of a world of
+    ranks) data-parallel over the ranks' blocks of the batch (global
+    losses, counters the maximum over the ranks).
 
     Returns ``train_step(params, opt_state, batch, s_val, lr_scales,
     tv_flag, sdf_tv, smooth_grad_tv) -> (params, opt_state, (mse,
@@ -107,11 +114,13 @@ def build_coarse_train_step(model: VoxurfC, opt: Adam, cfg,
                    sdf_tv, smooth_grad_tv):
         aux, grads = loss_and_grads(
             lambda p: coarse_loss(model, p, batch, s_val, tv_flag, sdf_tv,
-                                  smooth_grad_tv, **kw), params, "coarse")
+                                  smooth_grad_tv, sh=sh, **kw),
+            params, "coarse", sh)
         with record_function("coarse/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
-        return params, opt_state, tuple(a.detach() for a in aux)
+        mse, *counters = (a.detach() for a in aux)
+        return params, opt_state, (mse, *(sh.gmax(c) for c in counters))
 
     return train_step
 
@@ -281,8 +290,10 @@ class Coarse(AppClass):
 
     def learn(self) -> None:
         decay = exp_decay_factor(self.lr_decay)
+        self.check_shardable(self.train_bs)
         step_fn = build_coarse_train_step(self.renderer, self.opt, self.cfg,
-                                          device=self.device)
+                                          device=self.device,
+                                          sh=self.shard_helpers())
         ckpt_dir = self.ckpt_dir()
         ckpt_path = os.path.join(ckpt_dir, "last.ckpt")
         logger = self.get_logger()
@@ -336,12 +347,13 @@ class Coarse(AppClass):
                 self.evaluate(self.N_vis)
             if self.global_step % self.save_every == self.save_every - 1 or last_it:
                 self.save(ckpt_path)
-                if self.save_all:
+                if self.save_all and self.is_writer:
                     shutil.copy2(ckpt_path, os.path.join(
                         ckpt_dir, f"{self.pretty_global_step}.ckpt"))
 
         self.cfg.app["eval"]["ckpt"] = ckpt_path
-        save_cfg(self.cfg)
+        if self.is_writer:
+            save_cfg(self.cfg)
 
     def save(self, path: str) -> None:
         self.save_timed(path, {
@@ -402,8 +414,9 @@ class Coarse(AppClass):
             resolution=min(512, 4 * max(self.renderer.geo.world_size)))
         scale_mat = np.asarray(self.test_dataset.scale_mat)
         verts = verts * scale_mat[0, 0] + scale_mat[:3, 3][None]
-        meshutil.export_ply(os.path.join(dirs["mesh"], "mesh.ply"), verts,
-                            tris)
+        if self.is_writer:
+            meshutil.export_ply(os.path.join(dirs["mesh"], "mesh.ply"),
+                                verts, tris)
         t_mesh = time.perf_counter()
         if getattr(self.test_dataset, "pcd", None) is not None:
             _, _, mean_cd = DTU_CD(verts, tris, *self.test_dataset.pcd)

@@ -1,9 +1,11 @@
 """Stage 3 trainer, Fine: VoxurfF HDR radiance + learnable tone-mapper.
 
-Port of ``esrnerf_tpu/apps/fine.py`` for one device. The train step
+Port of ``esrnerf_tpu/apps/fine.py``. The train step
 (:func:`build_fine_train_step`): ``VoxurfF.forward_training`` -> loss ->
-backward -> SDF TV gradient -> per-group Adam, with the JAX step body's
-cross-device mean/sum/max as plain mean/identity/max. The trainer
+backward -> gradient all-reduce over the ranks (at world > 1) -> SDF TV
+gradient -> per-group Adam, with the JAX step body's cross-device
+mean/sum/max (:class:`~esrnerf_tpu_torch.parallel.mesh.ShardHelpers`). The
+trainer
 (:class:`Fine`): warm start from the coarse stage's SDF (rescale, resize,
 smooth), the training-ray filter, progressive grid scaling at the
 ``pg_scale`` steps with a fresh optimizer state, CosineLR with the
@@ -31,6 +33,7 @@ from esrnerf_tpu_torch.models.voxurf_base import make_mask_cache
 from esrnerf_tpu_torch.models.voxurff import VoxurfF
 from esrnerf_tpu_torch.ops.image import apply_gamma_curve
 from esrnerf_tpu_torch.optim import Adam, CosineLR
+from esrnerf_tpu_torch.parallel.mesh import ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import mesh as meshutil
 from esrnerf_tpu_torch.utils.device import resolve_device
@@ -39,10 +42,14 @@ from esrnerf_tpu_torch.utils.metrics import (DTU_CD, loss2psnr, rgb_lpips,
 
 
 def fine_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, *,
-              w_ent: float, w_lin: float, white_bg: float):
+              w_ent: float, w_lin: float, white_bg: float,
+              sh: ShardHelpers = ShardHelpers()):
     """The fine loss: ``mse + w_lin * lin_mse`` plus the last-ray entropy
-    term plus ``tv_flag * density_total_variation``. Returns ``(loss,
-    (mse, lin_mse, overflow, k1_frac, k2_frac))``."""
+    term plus ``tv_flag * density_total_variation``, each folded over the
+    ranks by ``sh`` (the means global, the entropy the global last ray's,
+    the TV divided by the world so the summed gradient holds it once).
+    Returns ``(loss, (mse, lin_mse, overflow, k1_frac, k2_frac))`` with the
+    rank's march counters."""
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], s_val,
@@ -51,26 +58,29 @@ def fine_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, *,
     srgb = torch.clamp(res["srgb/rgb"] + wbg, 0.0, 1.0)
     lin = torch.clamp(res["lin/rgb"] + wbg, min=0.0)
     rgbs = batch["rgbs"]
-    mse = ((srgb - rgbs) ** 2).mean()
+    mse = sh.gmean((srgb - rgbs) ** 2)
 
     lin_tone = torch.where(rgbs >= 1, torch.clamp(lin, max=1.0), lin)
-    lin_mse = ((apply_gamma_curve(lin_tone) - rgbs) ** 2).mean()
+    lin_mse = sh.gmean((apply_gamma_curve(lin_tone) - rgbs) ** 2)
     loss = mse + w_lin * lin_mse
 
     # the reference's entropy term reads only the batch's last ray
     pout = torch.clamp(res["etc/alphainv_cum"][..., -1], 1e-6, 1 - 1e-6)
-    ent = -(pout * torch.log(pout) + (1 - pout) * torch.log(1 - pout)).mean()
+    ent = sh.glast(
+        -(pout * torch.log(pout) + (1 - pout) * torch.log(1 - pout)).mean())
     loss = loss + w_ent * ent
 
     if tv_flag:
-        loss = loss + tv_flag * model.density_total_variation(
-            params, smooth_grad_tv)
+        tv = model.density_total_variation(params, smooth_grad_tv)
+        loss = loss + tv_flag * (tv / sh.n if sh.n > 1 else tv)
     return loss, (mse, lin_mse, res["etc/overflow"], res["etc/k1_frac"],
                   res["etc/k2_frac"])
 
 
-def build_fine_train_step(model, opt, cfg, device="cuda") -> Callable:
-    """The fine train step for one device.
+def build_fine_train_step(model, opt, cfg, device="cuda",
+                          sh: ShardHelpers = ShardHelpers()) -> Callable:
+    """The fine train step, on one device or (``sh`` of a world of ranks)
+    data-parallel over the ranks' blocks of the batch.
 
     Returns ``train_step(params, opt_state, batch, s_val, lr_scales,
     tv_flag, smooth_grad_tv, sdf_tv_w, tv_dense) -> (params, opt_state,
@@ -78,11 +88,15 @@ def build_fine_train_step(model, opt, cfg, device="cuda") -> Callable:
     argument order. ``batch`` holds ``rays_o, rays_d, viewdirs, em_modes,
     rgbs`` tensors on the model's device; the scalars are Python numbers
     (``tv_dense`` a bool). Parameters and optimizer state are updated in
-    place. The aux values stay on the device (no host sync). The phases
-    run inside ``torch.profiler.record_function`` ranges (``fine/loss``,
-    ``fine/backward``, ``fine/sdf_tv_grad``, ``fine/adam``; the forward's
-    own ``fine/march``, ``fine/features``, ``fine/heads``) so a profile
-    attributes device time to them.
+    place. The aux values stay on the device (no host sync); on a world of
+    ranks the losses are global and the counters the maximum over the
+    ranks. The gradients are summed over the ranks before the SDF TV
+    term, which is added once to the global gradient (so the sparse TV
+    sees the one-device nonzero pattern). The phases run inside
+    ``torch.profiler.record_function`` ranges (``fine/loss``,
+    ``fine/backward``, ``fine/grad_allreduce``, ``fine/sdf_tv_grad``,
+    ``fine/adam``; the forward's own ``fine/march``, ``fine/features``,
+    ``fine/heads``) so a profile attributes device time to them.
 
     ``device`` must be the model's device; ``"cuda"`` (the default) raises
     without CUDA. TF32 is switched off for matmuls and cuDNN here, so the
@@ -104,7 +118,7 @@ def build_fine_train_step(model, opt, cfg, device="cuda") -> Callable:
         aux, grads = loss_and_grads(
             lambda p: fine_loss(model, p, batch, s_val, tv_flag,
                                 smooth_grad_tv, w_ent=w_ent, w_lin=w_lin,
-                                white_bg=white_bg), params, "fine")
+                                white_bg=white_bg, sh=sh), params, "fine", sh)
 
         # in-place SDF TV as a gradient term (dense, or sparse on the
         # gradient's nonzero pattern)
@@ -118,7 +132,9 @@ def build_fine_train_step(model, opt, cfg, device="cuda") -> Callable:
         with record_function("fine/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
-        return params, opt_state, tuple(a.detach() for a in aux)
+        mse, lin_mse, *counters = (a.detach() for a in aux)
+        return params, opt_state, (mse, lin_mse,
+                                   *(sh.gmax(c) for c in counters))
 
     return train_step
 
@@ -297,8 +313,10 @@ class Fine(AppClass):
             self.evaluate()
 
     def learn(self) -> None:
+        self.check_shardable(self.train_bs)
         step_fn = build_fine_train_step(self.renderer, self.opt, self.cfg,
-                                        device=self.device)
+                                        device=self.device,
+                                        sh=self.shard_helpers())
         ckpt_dir = self.ckpt_dir()
         ckpt_path = os.path.join(ckpt_dir, "last.ckpt")
         logger = self.get_logger()
@@ -370,12 +388,13 @@ class Fine(AppClass):
                 self.evaluate(self.N_vis)
             if self.global_step % self.save_every == self.save_every - 1 or last_it:
                 self.save(ckpt_path)
-                if self.save_all:
+                if self.save_all and self.is_writer:
                     shutil.copy2(ckpt_path, os.path.join(
                         ckpt_dir, f"{self.pretty_global_step}.ckpt"))
 
         self.cfg.app["eval"]["ckpt"] = ckpt_path
-        save_cfg(self.cfg)
+        if self.is_writer:
+            save_cfg(self.cfg)
 
     def save(self, path: str) -> None:
         self.save_timed(path, {
@@ -496,8 +515,9 @@ class Fine(AppClass):
             resolution=min(512, 4 * max(self.renderer.geo.world_size)))
         scale_mat = np.asarray(self.test_dataset.scale_mat)
         verts = verts * scale_mat[0, 0] + scale_mat[:3, 3][None]
-        meshutil.export_ply(os.path.join(dirs["mesh"], "mesh.ply"), verts,
-                            tris)
+        if self.is_writer:
+            meshutil.export_ply(os.path.join(dirs["mesh"], "mesh.ply"),
+                                verts, tris)
         t_mesh = time.perf_counter()
         scn_metrics = {}
         if getattr(self.test_dataset, "pcd", None) is not None:

@@ -1,11 +1,13 @@
 """Stage 4 trainer, LTS: light-transport-segment inverse rendering on the
 ESRNeRF model.
 
-Port of ``esrnerf_tpu/apps/lts.py`` for one device. The train step
+Port of ``esrnerf_tpu/apps/lts.py``. The train step
 (:func:`build_lts_train_step`): ``ESRNeRF.forward_training`` -> loss (sRGB
 MSE + linear MSE + ``weight_lts`` x the masked off/emo reconstruction MSEs +
-the last-ray entropy + the normal-smoothness L1 + TV) -> backward -> SDF TV
-gradient -> per-group Adam. The trainer (:class:`LTS`): a warm start of the
+the last-ray entropy + the normal-smoothness L1 + TV) -> backward ->
+gradient all-reduce over the ranks (at world > 1; each rank selects its
+share of the surface points from its own march) -> SDF TV gradient ->
+per-group Adam. The trainer (:class:`LTS`): a warm start of the
 overlapping parameter groups from the fine stage's checkpoint (optionally
 the BRDF grid from the off colour grid), the two-pool
 :class:`~esrnerf_tpu_torch.data.sampler.RayGroupManager` seeded with the
@@ -35,25 +37,29 @@ from esrnerf_tpu_torch.models.esrnerf import ESRNeRF
 from esrnerf_tpu_torch.ops import pbr as pbrops
 from esrnerf_tpu_torch.ops.image import apply_gamma_curve
 from esrnerf_tpu_torch.optim import Adam, CosineLR
+from esrnerf_tpu_torch.parallel.mesh import ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import png
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import loss2psnr
 
 
-def masked_mse(a, b, valid):
-    """MSE over the rows where ``valid``, normalised by their count."""
+def masked_mse(a, b, valid, gsum: Callable = lambda x: x):
+    """MSE over the rows where ``valid``, normalised by their count; with
+    ``gsum`` (``ShardHelpers.gsum``) the numerator and the count are both
+    global, exact where the ranks' valid counts differ."""
     v = valid[:, None].to(a.dtype)
-    n = torch.clamp(v.sum() * a.shape[-1], min=1.0)
-    return (((a - b) ** 2) * v).sum() / n
+    n = torch.clamp(gsum(v.sum()) * a.shape[-1], min=1.0)
+    return gsum((((a - b) ** 2) * v).sum()) / n
 
 
 def lts_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
              generator, *, w_ent: float, w_lin: float, w_lts: float,
              w_nsm: float, white_bg: float, normal_eps: float,
-             emit_eps: float):
-    """The LTS loss. Returns ``(loss, (mse, lin_mse, off_mse, emo_mse,
-    overflow, k1_frac, k2_frac, k1_frac_2nd, k2_frac_2nd))``."""
+             emit_eps: float, sh: ShardHelpers = ShardHelpers()):
+    """The LTS loss, each term folded over the ranks by ``sh``. Returns
+    ``(loss, (mse, lin_mse, off_mse, emo_mse, overflow, k1_frac, k2_frac,
+    k1_frac_2nd, k2_frac_2nd))`` with the rank's march counters."""
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], batch["uncert_masks"], s_val, normal_eps,
@@ -63,39 +69,46 @@ def lts_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
     srgb = torch.clamp(res["srgb/rgb"] + wbg, 0.0, 1.0)
     lin = torch.clamp(res["lin/rgb"] + wbg, min=0.0)
     rgbs = batch["rgbs"]
-    mse = ((srgb - rgbs) ** 2).mean()
+    mse = sh.gmean((srgb - rgbs) ** 2)
     lin_tone = torch.where(rgbs >= 1, torch.clamp(lin, max=1.0), lin)
-    lin_mse = ((apply_gamma_curve(lin_tone) - rgbs) ** 2).mean()
+    lin_mse = sh.gmean((apply_gamma_curve(lin_tone) - rgbs) ** 2)
     loss = mse + w_lin * lin_mse
 
     lv = res["lin/pbr/valid"]
-    off_l = masked_mse(res["lin/pbr/off"], res["lin/pbr/off_hat"], lv)
-    emo_l = masked_mse(res["lin/pbr/emo"], res["lin/pbr/emo_hat"], lv)
+    off_l = masked_mse(res["lin/pbr/off"], res["lin/pbr/off_hat"], lv,
+                       sh.gsum)
+    emo_l = masked_mse(res["lin/pbr/emo"], res["lin/pbr/emo_hat"], lv,
+                       sh.gsum)
     loss = loss + w_lts * (off_l + emo_l)
 
     # the reference's entropy term reads only the batch's last ray
     pout = torch.clamp(res["etc/alphainv_cum"][..., -1], 1e-6, 1 - 1e-6)
-    ent = -(pout * torch.log(pout) + (1 - pout) * torch.log(1 - pout)).mean()
+    ent = sh.glast(
+        -(pout * torch.log(pout) + (1 - pout) * torch.log(1 - pout)).mean())
     loss = loss + w_ent * ent
 
     # normal smoothness on the per-point expected gradients, masked to
     # real samples
     pv = res["etc/point_valid"][:, None].to(torch.float32)
-    nsm = (torch.abs(res["etc/normal"] - res["etc/normal_eps"]) * pv).sum() \
-        / torch.clamp(pv.sum() * 3, min=1.0)
+    nsm = sh.gsum(
+        (torch.abs(res["etc/normal"] - res["etc/normal_eps"]) * pv).sum()) \
+        / torch.clamp(sh.gsum(pv.sum()) * 3, min=1.0)
     loss = loss + w_nsm * nsm
 
     if tv_flag:
-        loss = loss + tv_flag * model.density_total_variation(
-            params, smooth_grad_tv)
+        tv = model.density_total_variation(params, smooth_grad_tv)
+        loss = loss + tv_flag * (tv / sh.n if sh.n > 1 else tv)
     return loss, (mse, lin_mse, off_l, emo_l, res["etc/overflow"],
                   res["etc/k1_frac"], res["etc/k2_frac"],
                   res["etc/k1_frac_2nd"], res["etc/k2_frac_2nd"])
 
 
-def build_lts_train_step(model, opt, cfg, device="cuda") -> Callable:
-    """The LTS train step for one device, in the shape of
-    :func:`~esrnerf_tpu_torch.apps.fine.build_fine_train_step`.
+def build_lts_train_step(model, opt, cfg, device="cuda",
+                         sh: ShardHelpers = ShardHelpers()) -> Callable:
+    """The LTS train step, in the shape of
+    :func:`~esrnerf_tpu_torch.apps.fine.build_fine_train_step` (``sh``: the
+    ranks' reductions; the caller sets ``model.lts_points_divisor`` to the
+    world).
 
     Returns ``train_step(params, opt_state, batch, s_val, lr_scales,
     tv_flag, smooth_grad_tv, sdf_tv_w, tv_dense, draws=None,
@@ -128,8 +141,8 @@ def build_lts_train_step(model, opt, cfg, device="cuda") -> Callable:
                    generator=None):
         aux, grads = loss_and_grads(
             lambda p: lts_loss(model, p, batch, s_val, tv_flag,
-                               smooth_grad_tv, draws, generator, **kw),
-            params, "lts")
+                               smooth_grad_tv, draws, generator, sh=sh, **kw),
+            params, "lts", sh)
         if tv_flag:
             with torch.no_grad(), record_function("lts/sdf_tv_grad"):
                 tv_g = model.sdf_tv_grad(
@@ -139,16 +152,18 @@ def build_lts_train_step(model, opt, cfg, device="cuda") -> Callable:
         with record_function("lts/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
-        return params, opt_state, tuple(a.detach() for a in aux)
+        return params, opt_state, counters_max(aux, 4, sh)
 
     return train_step
 
 
-def step_generator(device, seed: int, step: int) -> torch.Generator:
-    """The forward's generator of a run from ``step`` on: seeded from
-    ``(seed, step)``, so a resumed run draws its own stream."""
-    s = int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(s)
+def counters_max(aux, n_terms: int, sh: ShardHelpers) -> tuple:
+    """The step's aux detached: its first ``n_terms`` loss terms as they
+    are, the five march counters after them the maximum over the ranks,
+    anything after those as it is."""
+    aux = tuple(a.detach() for a in aux)
+    return (*aux[:n_terms], *(sh.gmax(c) for c in aux[n_terms:n_terms + 5]),
+            *aux[n_terms + 5:])
 
 
 class LTS(Fine):
@@ -234,14 +249,20 @@ class LTS(Fine):
     # ---------------------------------------------------------------- train
 
     def _train_step(self) -> Callable:
-        """The stage's train step (PDRA: its own loss)."""
+        """The stage's train step (PDRA: its own loss). On a world of ranks
+        each selects its share of the surface points."""
+        self.check_shardable(self.train_bs)
+        self.renderer.lts_points_divisor = self.num_shards
         return build_lts_train_step(self.renderer, self.opt, self.cfg,
-                                    device=self.device)
+                                    device=self.device,
+                                    sh=self.shard_helpers())
 
     def learn(self) -> None:
         step_fn = self._train_step()
-        gen = step_generator(self.device, self.cfg.system["seed"],
-                             self.global_step)
+        # the forward's draws: a stream of its own for a run resumed at a
+        # step, and for each rank
+        gen = self.shard_helpers().fold_generator(
+            self.device, self.cfg.system["seed"], self.global_step)
         ckpt_dir = self.ckpt_dir()
         ckpt_path = os.path.join(ckpt_dir, "last.ckpt")
         logger = self.get_logger()
@@ -316,12 +337,13 @@ class LTS(Fine):
                 self.evaluate(self.N_vis)
             if self.global_step % self.save_every == self.save_every - 1 or last_it:
                 self.save(ckpt_path)
-                if self.save_all:
+                if self.save_all and self.is_writer:
                     shutil.copy2(ckpt_path, os.path.join(
                         ckpt_dir, f"{self.pretty_global_step}.ckpt"))
 
         self.cfg.app["eval"]["ckpt"] = ckpt_path
-        save_cfg(self.cfg)
+        if self.is_writer:
+            save_cfg(self.cfg)
 
     def on_step_begin(self) -> None:
         """Hook for the PDRA stage's periodic ray-group updates."""
@@ -403,7 +425,9 @@ class LTS(Fine):
 
     def _scene_extra_images(self, dirs) -> None:
         """The SG envmap as ``etc/envmap.png`` and its gamma-curved
-        ``etc/envmap_gamma.png``."""
+        ``etc/envmap_gamma.png`` (rank 0)."""
+        if not self.is_writer:
+            return
         with torch.no_grad():
             env = self.renderer.render_envmap(self.params, self.envmap_height,
                                               self.envmap_width)

@@ -1,7 +1,7 @@
 """Stage 5 trainer, PDRA: progressive discovery of reflection areas, and the
 relighting evaluation phases.
 
-Port of ``esrnerf_tpu/apps/pdra.py`` for one device. The threshold
+Port of ``esrnerf_tpu/apps/pdra.py``. The threshold
 schedule ``k_val = prog_start + prog_slope * min(step, prog_end_step)``
 drives a regroup every ``group_interval`` steps (and at step 0): the
 uncertain rays' emission is rendered again (``ESRNeRF.eval_emit``) and the
@@ -13,6 +13,13 @@ phases (``test_nvc``, ``test_nvi``, ``test_nvic``) fine-tune the emissive
 branch per test image against edited targets (:meth:`PDRA.filter_edit_rays`,
 :func:`build_finetune_step`) and render with the frozen ``emit_color``
 snapshot; ``test_nv`` adds the emission-mask IoU to the LTS eval.
+
+On a world of data-parallel ranks the train step runs on each rank's block
+of the uncertain + certain batch, the fine-tune on its block of the edit
+batch when that divides over the ranks (else every rank runs the whole
+batch), and the regroup, edit-filter and slot-cache sweeps split each
+chunk over the ranks (:meth:`AppClass.run_chunk`), so every rank holds the
+same pools.
 """
 
 from __future__ import annotations
@@ -27,12 +34,14 @@ from torch.profiler import record_function
 
 from esrnerf_tpu_torch.apps.base import import_class, loss_and_grads
 from esrnerf_tpu_torch.apps.fine import composite_hdr
-from esrnerf_tpu_torch.apps.lts import LTS, masked_mse
+from esrnerf_tpu_torch.apps.lts import LTS, counters_max, masked_mse
 from esrnerf_tpu_torch.data.base import LightDict
 from esrnerf_tpu_torch.data.sampler import RayGroupManager
 from esrnerf_tpu_torch.ops.image import apply_gamma_curve
 from esrnerf_tpu_torch.optim import Adam
 from esrnerf_tpu_torch.optim.adam import tree_map
+from esrnerf_tpu_torch.parallel.mesh import (ShardHelpers, pad_to_multiple,
+                                            shard_rows)
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import IoU, loss2psnr, rgb_lpips, rgb_ssim
@@ -40,22 +49,24 @@ from esrnerf_tpu_torch.utils.metrics import IoU, loss2psnr, rgb_lpips, rgb_ssim
 FT_GROUPS = ("emo_color", "emo_rgbnet")
 
 
-def masked_l1(a, b, valid):
-    """L1 over the rows where ``valid``, normalised by their count."""
+def masked_l1(a, b, valid, gsum: Callable = lambda x: x):
+    """L1 over the rows where ``valid``, normalised by their count (both
+    global with ``gsum``, as :func:`~esrnerf_tpu_torch.apps.lts.
+    masked_mse`)."""
     v = valid[:, None].to(a.dtype)
-    n = torch.clamp(v.sum() * a.shape[-1], min=1.0)
-    return (torch.abs(a - b) * v).sum() / n
+    n = torch.clamp(gsum(v.sum()) * a.shape[-1], min=1.0)
+    return gsum((torch.abs(a - b) * v).sum()) / n
 
 
 def pdra_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
               generator, *, w_ent: float, w_lin: float, w_lts: float,
               w_lts_l: float, w_lts_r: float, w_nsm: float, w_esm: float,
               w_esupp: float, white_bg: float, normal_eps: float,
-              emit_eps: float):
-    """The PDRA loss. Returns ``(loss, (mse, lin_mse, off_l1, emo_l1,
-    overflow, k1_frac, k2_frac, k1_frac_2nd, k2_frac_2nd, emo_r1,
-    emit_supp, emit_smooth))``: the LTS step's nine aux values, then the
-    other PDRA terms."""
+              emit_eps: float, sh: ShardHelpers = ShardHelpers()):
+    """The PDRA loss, each term folded over the ranks by ``sh``. Returns
+    ``(loss, (mse, lin_mse, off_l1, emo_l1, overflow, k1_frac, k2_frac,
+    k1_frac_2nd, k2_frac_2nd, emo_r1, emit_supp, emit_smooth))``: the LTS
+    step's nine aux values, then the other PDRA terms."""
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], batch["uncert_masks"], s_val, normal_eps,
@@ -65,52 +76,55 @@ def pdra_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
     srgb = torch.clamp(res["srgb/rgb"] + wbg, 0.0, 1.0)
     lin = torch.clamp(res["lin/rgb"] + wbg, min=0.0)
     rgbs = batch["rgbs"]
-    mse = ((srgb - rgbs) ** 2).mean()
+    mse = sh.gmean((srgb - rgbs) ** 2)
     lin_tone = torch.where(rgbs >= 1, torch.clamp(lin, max=1.0), lin)
-    lin_mse = ((apply_gamma_curve(lin_tone) - rgbs) ** 2).mean()
+    lin_mse = sh.gmean((apply_gamma_curve(lin_tone) - rgbs) ** 2)
     loss = mse + w_lin * lin_mse
 
     # the asymmetric pair: emo_l1 moves the target, emo_r1 the emo head
     lv = res["lin/pbr/valid"]
     emo, emo_hat = res["lin/pbr/emo"], res["lin/pbr/emo_hat"]
-    off_l = masked_l1(res["lin/pbr/off"], res["lin/pbr/off_hat"], lv)
-    emo_l = masked_l1(emo.detach(), emo_hat, lv)
-    emo_r = masked_l1(emo, emo_hat.detach(), lv)
+    off_l = masked_l1(res["lin/pbr/off"], res["lin/pbr/off_hat"], lv,
+                      sh.gsum)
+    emo_l = masked_l1(emo.detach(), emo_hat, lv, sh.gsum)
+    emo_r = masked_l1(emo, emo_hat.detach(), lv, sh.gsum)
     loss = loss + w_lts * (off_l + w_lts_l * emo_l + w_lts_r * emo_r)
 
-    # emission suppression on the certain rays
+    # emission suppression on the certain rays (a global count)
     cert = (~batch["uncert_masks"])[:, None].to(torch.float32)
-    denom = torch.clamp(cert.sum() * 3, min=1.0)
-    em_supp = ((res["etc/emit_marched"] ** 2) * cert).sum() / denom
+    denom = torch.clamp(sh.gsum(cert.sum()) * 3, min=1.0)
+    em_supp = sh.gsum(((res["etc/emit_marched"] ** 2) * cert).sum()) / denom
     loss = loss + w_esupp * em_supp
 
     # the reference's entropy term reads only the batch's last ray
     pout = torch.clamp(res["etc/alphainv_cum"][..., -1], 1e-6, 1 - 1e-6)
-    ent = -(pout * torch.log(pout) + (1 - pout) * torch.log(1 - pout)).mean()
+    ent = sh.glast(
+        -(pout * torch.log(pout) + (1 - pout) * torch.log(1 - pout)).mean())
     loss = loss + w_ent * ent
 
     # normal and emission smoothness, masked to real samples
     pv = res["etc/point_valid"][:, None].to(torch.float32)
 
     def pt_l1(a, b):
-        n = torch.clamp(pv.sum() * a.shape[-1], min=1.0)
-        return (torch.abs(a - b) * pv).sum() / n
+        n = torch.clamp(sh.gsum(pv.sum()) * a.shape[-1], min=1.0)
+        return sh.gsum((torch.abs(a - b) * pv).sum()) / n
 
     loss = loss + w_nsm * pt_l1(res["etc/normal"], res["etc/normal_eps"])
     esm = pt_l1(res["etc/emit"], res["etc/emit_eps"])
     loss = loss + w_esm * esm
 
     if tv_flag:
-        loss = loss + tv_flag * model.density_total_variation(
-            params, smooth_grad_tv)
+        tv = model.density_total_variation(params, smooth_grad_tv)
+        loss = loss + tv_flag * (tv / sh.n if sh.n > 1 else tv)
     return loss, (mse, lin_mse, off_l, emo_l, res["etc/overflow"],
                   res["etc/k1_frac"], res["etc/k2_frac"],
                   res["etc/k1_frac_2nd"], res["etc/k2_frac_2nd"], emo_r,
                   em_supp, esm)
 
 
-def build_pdra_train_step(model, opt, cfg, device="cuda") -> Callable:
-    """The PDRA train step for one device, in the shape of
+def build_pdra_train_step(model, opt, cfg, device="cuda",
+                          sh: ShardHelpers = ShardHelpers()) -> Callable:
+    """The PDRA train step (``sh``: the ranks' reductions), in the shape of
     :func:`~esrnerf_tpu_torch.apps.lts.build_lts_train_step`: the same
     arguments (``batch`` with ``uncert_masks``), the aux of
     :func:`pdra_loss`, and the ranges ``pdra/{loss,backward,sdf_tv_grad,
@@ -140,8 +154,9 @@ def build_pdra_train_step(model, opt, cfg, device="cuda") -> Callable:
                    generator=None):
         aux, grads = loss_and_grads(
             lambda p: pdra_loss(model, p, batch, s_val, tv_flag,
-                                smooth_grad_tv, draws, generator, **kw),
-            params, "pdra")
+                                smooth_grad_tv, draws, generator, sh=sh,
+                                **kw),
+            params, "pdra", sh)
         if tv_flag:
             with torch.no_grad(), record_function("pdra/sdf_tv_grad"):
                 tv_g = model.sdf_tv_grad(
@@ -151,20 +166,22 @@ def build_pdra_train_step(model, opt, cfg, device="cuda") -> Callable:
         with record_function("pdra/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
-        return params, opt_state, tuple(a.detach() for a in aux)
+        return params, opt_state, counters_max(aux, 4, sh)
 
     return train_step
 
 
-def build_finetune_step(model, opt, weight_lts: float) -> Callable:
+def build_finetune_step(model, opt, weight_lts: float,
+                        sh: ShardHelpers = ShardHelpers()) -> Callable:
     """The relighting fine-tune step: ``ft_step(trainable, opt_state,
     frozen, batch, s_val, draws=None, generator=None, ft_pts=None,
     ft_valid=None) -> (trainable, opt_state, (loss, overflow))``.
     ``trainable`` holds ``emo_color`` and ``emo_rgbnet``; ``batch`` the
     rays, ``em_modes``, ``em_intensities`` and ``em_colors``. The loss is
     ``weight_lts`` x the masked MSE of the emo head against its edited
-    target; Adam updates ``trainable`` in place. Ranges ``relight/{loss,
-    backward,adam}`` and the forward's own."""
+    target (numerator and count global over the ranks of ``sh``, the
+    overflow their maximum); Adam updates ``trainable`` in place. Ranges
+    ``relight/{loss,backward,adam}`` and the forward's own."""
 
     def ft_step(trainable, opt_state, frozen, batch, s_val, draws=None,
                 generator=None, ft_pts=None, ft_valid=None):
@@ -176,13 +193,13 @@ def build_finetune_step(model, opt, weight_lts: float) -> Callable:
                 ft_pts=ft_pts, ft_valid=ft_valid)
             loss = weight_lts * masked_mse(
                 res["lin/pbr/emo"], res["lin/pbr/emo_hat"],
-                res["lin/pbr/valid"])
+                res["lin/pbr/valid"], sh.gsum)
             return loss, (loss, res["etc/overflow"])
 
-        aux, grads = loss_and_grads(loss_fn, trainable, "relight")
+        (loss, ovf), grads = loss_and_grads(loss_fn, trainable, "relight", sh)
         with record_function("relight/adam"):
             trainable, opt_state = opt.step(trainable, grads, opt_state)
-        return trainable, opt_state, tuple(a.detach() for a in aux)
+        return trainable, opt_state, (loss.detach(), sh.gmax(ovf.detach()))
 
     return ft_step
 
@@ -290,32 +307,39 @@ class PDRA(LTS):
     # ------------------------------------------------------------ ray groups
 
     def _chunks(self, data, bs, keys=("rays_o", "rays_d", "viewdirs")):
-        """``(st, en, tensors)`` over ``data`` in chunks of ``bs`` rays, a
-        short tail chunk tiled cyclically to ``bs`` (the march's budgets
+        """``(st, en, host arrays)`` over ``data`` in chunks of ``bs`` rays,
+        a short tail chunk tiled cyclically to ``bs`` (the march's budgets
         are per chunk)."""
         n = len(data[keys[0]])
         for st in range(0, n, bs):
             en = min(st + bs, n)
             idx = np.resize(np.arange(st, en), bs)
-            yield st, en, [self.to_device(data[k][idx]) for k in keys]
+            yield st, en, [data[k][idx] for k in keys]
+
+    def _probe_fn(self, probe, name: str, s_val) -> Callable:
+        """``fn(ro, rd, vd) -> {name, etc/overflow}`` of a per-ray probe
+        (``eval_emit``, ``eval_esp``) for :meth:`run_chunk`, through
+        :meth:`eval_chunk_retry`."""
+        def out(*a):
+            return dict(zip((name, "etc/overflow"), probe(*a)))
+
+        return lambda ro, rd, vd: self.eval_chunk_retry(
+            out, self.params, ro, rd, vd, s_val)
 
     def update_ray_groups(self, k_val: float) -> None:
         """Render the uncertain pool's emission again and move the rays
         whose largest channel is at most ``k_val`` to the certain pool.
         A chunk that overflows its march budgets runs again with larger
-        ones (:meth:`eval_chunk_retry`)."""
+        ones (:meth:`eval_chunk_retry`). On a world of ranks each renders
+        its block of every chunk; all get the whole pool's emission."""
         t0 = time.perf_counter()
         pool = self.sampler.uncert_data
         emission = np.zeros((len(pool["rays_o"]), 3), np.float32)
         s_val = self.s_val_at(self.global_step)
+        emit_fn = self._probe_fn(self.renderer.eval_emit, "emit", s_val)
 
-        def emit_fn(*a):
-            return dict(zip(("emit", "etc/overflow"),
-                            self.renderer.eval_emit(*a)))
-
-        for st, en, (ro, rd, vd) in self._chunks(pool, self.eval_uncert_bs):
-            out = self.eval_chunk_retry(emit_fn, self.params, ro, rd, vd,
-                                        s_val)
+        for st, en, arrays in self._chunks(pool, self.eval_uncert_bs):
+            out = self.run_chunk(emit_fn, *arrays)
             self.track_overflow(out["etc/overflow"])
             emission[st:en] = out["emit"][:en - st].cpu().numpy()
 
@@ -342,8 +366,11 @@ class PDRA(LTS):
     # ---------------------------------------------------------------- train
 
     def _train_step(self) -> Callable:
+        self.check_shardable(self.train_uncert_bs + self.train_cert_bs)
+        self.renderer.lts_points_divisor = self.num_shards
         return build_pdra_train_step(self.renderer, self.opt, self.cfg,
-                                     device=self.device)
+                                     device=self.device,
+                                     sh=self.shard_helpers())
 
     def save(self, path: str) -> None:
         self.save_timed(path, {
@@ -387,14 +414,10 @@ class PDRA(LTS):
         colors = np.zeros((n, 2), np.float32)
         intensities = np.zeros(n, np.float32)
         s_val = self.s_val_at(self.global_step)
+        esp_fn = self._probe_fn(self.renderer.eval_esp, "esp", s_val)
 
-        def esp_fn(*a):
-            return dict(zip(("esp", "etc/overflow"),
-                            self.renderer.eval_esp(*a)))
-
-        for st, en, (ro, rd, vd) in self._chunks(pool, self.eval_bs):
-            out = self.eval_chunk_retry(esp_fn, self.params, ro, rd, vd,
-                                        s_val)
+        for st, en, arrays in self._chunks(pool, self.eval_bs):
+            out = self.run_chunk(esp_fn, *arrays)
             self.track_overflow(out["etc/overflow"])
             esp = out["esp"][:en - st].cpu().numpy()
 
@@ -446,13 +469,22 @@ class PDRA(LTS):
         """Each pool's rays' surviving samples against the frozen SDF as
         the extra sampler keys ``ft_pts`` / ``ft_valid`` (``ppr`` slots a
         ray, ``app.eval.cache_march_ppr``); chunks of
-        ``app.eval.cache_march_chunk`` rays at most, a short tail padded
-        with copies of its last ray."""
+        ``app.eval.cache_march_chunk`` rays at most (a multiple of the
+        world, split over the ranks), a short tail padded with copies of
+        its last ray."""
         ev = self.cfg.app["eval"]
         ppr = int(ev.get("cache_march_ppr", 16))
         model = self.renderer
         pool_max = max(sampler.uncert_data_num, sampler.cert_data_num, 1)
-        chunk = min(int(ev.get("cache_march_chunk", 4096)), pool_max)
+        chunk = min(int(ev.get("cache_march_chunk", 4096)),
+                    pad_to_multiple(pool_max, self.num_shards))
+
+        def slots(ro, rd, vd):
+            p, ok, (cnt, drop) = model.geo.march_ray_slots(
+                sdf, ro, rd, vd, s_val, model.fastcolor_thres,
+                model.neus_alpha, ppr)
+            return {"pts": p, "ok": ok, "cnt": cnt, "drop": drop}
+
         dropped = []
         for pool in (sampler.uncert_data, sampler.cert_data):
             n = len(pool["rays_o"])
@@ -461,16 +493,14 @@ class PDRA(LTS):
                 en = min(st + chunk, n)
                 idx = np.concatenate([np.arange(st, en),
                                       np.full(chunk - (en - st), en - 1)])
-                ro, rd, vd = (self.to_device(pool[k][idx])
-                              for k in ("rays_o", "rays_d", "viewdirs"))
-                p, ok, (cnt, drop) = model.geo.march_ray_slots(
-                    sdf, ro, rd, vd, s_val, model.fastcolor_thres,
-                    model.neus_alpha, ppr)
-                pts_l.append(p[:en - st].cpu().numpy())
-                ok_l.append(ok[:en - st].cpu().numpy())
+                out = self.run_chunk(slots, *(pool[k][idx] for k in
+                                              ("rays_o", "rays_d",
+                                               "viewdirs")))
+                pts_l.append(out["pts"][:en - st].cpu().numpy())
+                ok_l.append(out["ok"][:en - st].cpu().numpy())
                 # real rays only: the padded tail repeats one ray
-                c = cnt[:en - st].cpu().numpy().astype(np.float64)
-                d = drop[:en - st].cpu().numpy().astype(np.float64)
+                c = out["cnt"][:en - st].cpu().numpy().astype(np.float64)
+                d = out["drop"][:en - st].cpu().numpy().astype(np.float64)
                 dropped.append(d.sum() / max(c.sum(), 1.0))
             pool["ft_pts"] = (np.concatenate(pts_l, 0) if pts_l
                               else np.zeros((0, ppr, 3), np.float32))
@@ -516,13 +546,25 @@ class PDRA(LTS):
 
         opt = Adam(self.eval_lrs)
         opt_state = opt.init(trainable)
-        step = build_finetune_step(self.renderer, opt, self.eval_weight_lts)
-        gen = torch.Generator(device=self.device).manual_seed(
-            int(self.cfg.system["seed"]))
+        # data-parallel when the edit batch divides over the ranks; else
+        # every rank runs the whole batch alike
+        n = self.num_shards
+        sh = (self.shard_helpers()
+              if (self.eval_uncert_bs + self.eval_cert_bs) % n == 0
+              else ShardHelpers())
+        self.renderer.lts_points_divisor = sh.n
+        step = build_finetune_step(self.renderer, opt, self.eval_weight_lts,
+                                   sh)
+        seed = int(self.cfg.system["seed"])
+        if sh.n > 1:  # ranks draw apart
+            seed = int(np.random.SeedSequence([seed, sh.rank])
+                       .generate_state(1)[0])
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         losses, ovfs = [], []
         for _ in self.tqdm(range(self.eval_niters), desc="finetune",
                            leave=False):
-            batch = self.place_batch(sampler.sample())
+            batch = {k: self.to_device(shard_rows(v, sh.rank, sh.n))
+                     for k, v in sampler.sample().items()}
             trainable, opt_state, (loss, ovf) = step(
                 trainable, opt_state, frozen, batch, s_val, generator=gen,
                 ft_pts=batch.get("ft_pts"), ft_valid=batch.get("ft_valid"))

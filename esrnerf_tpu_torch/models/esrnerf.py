@@ -95,6 +95,15 @@ class ESRNeRF(VoxurfF):
         )
         # PDRA: emission-certain points keep their reflection detached
         self.pdra_mode = False
+        # data parallelism: each of this many ranks selects its share of
+        # the num_ltspts surface points from its own march
+        self.lts_points_divisor = 1
+
+    @property
+    def n_lts_points(self) -> int:
+        """Surface points a forward selects: ``ceil(num_ltspts /
+        lts_points_divisor)``."""
+        return -(-self.num_ltspts // self.lts_points_divisor)
 
     # ------------------------------------------------------------------ init
 
@@ -122,7 +131,7 @@ class ESRNeRF(VoxurfF):
         g, gd = generator, generator.device
         return LTSDraws(
             torch.rand((k2,), generator=g, device=gd),
-            pbrops.scattering_draws(g, (self.num_ltspts,),
+            pbrops.scattering_draws(g, (self.n_lts_points,),
                                     self.num_2ndrays + 1),
             torch.randn((k2, 3), generator=g, device=gd),
             torch.randn((k2, 3), generator=g, device=gd),
@@ -135,7 +144,7 @@ class ESRNeRF(VoxurfF):
         g, gd = generator, generator.device
         return FinetuneDraws(
             torch.rand((n_rows,), generator=g, device=gd),
-            pbrops.scattering_draws(g, (self.num_ltspts,),
+            pbrops.scattering_draws(g, (self.n_lts_points,),
                                     self.num_2ndrays + 1),
         )
 
@@ -359,7 +368,7 @@ class ESRNeRF(VoxurfF):
 
         with record_function("lts/lts"):
             sel, lts_valid = self._select_lts_points(draws.select, m,
-                                                     self.num_ltspts)
+                                                     self.n_lts_points)
             rs = rid.index_select(0, sel)
             take = lambda x: x.index_select(0, sel)
             lts = self.light_transport_segment(
@@ -586,7 +595,7 @@ class ESRNeRF(VoxurfF):
                 # lower index (top_k's), ascending
                 scores = torch.where(flat_ok, draws.select,
                                      torch.full_like(draws.select, 2.0))
-                sel = torch.argsort(scores, stable=True)[:self.num_ltspts]
+                sel = torch.argsort(scores, stable=True)[:self.n_lts_points]
                 sel, _ = torch.sort(sel)
                 valid = flat_ok.index_select(0, sel)
                 pts = flat_pts.index_select(0, sel)
@@ -600,7 +609,7 @@ class ESRNeRF(VoxurfF):
                     draws = self.finetune_draws(generator, m.pts.shape[0])
                 rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
                 sel, valid = self._select_lts_points(draws.select, m,
-                                                     self.num_ltspts)
+                                                     self.n_lts_points)
                 pts = m.pts.index_select(0, sel)
                 rid_sel = rid.index_select(0, sel)
             P = pts.shape[0]

@@ -27,6 +27,17 @@ coarse, fine and LTS then log ``mesh/CD`` with their evals.
 ``system.device=cpu`` runs on the CPU (the plain PyTorch versions of the
 kernels); any other value, including the configs' ``tpu`` or none, means
 the GPU, and the run raises when CUDA is not available.
+
+Data-parallel over N ranks (one process each; NCCL with a card a rank,
+gloo where ranks share a card or run on the CPU):
+
+    torchrun --standalone --nproc_per_node=N -m esrnerf_tpu_torch.run \
+        -cn cfg/exp/esrnerf/giftbox_w/fine.yaml app.phase=train
+
+Every rank composes the config, then takes rank 0's (its ``log.name``
+reads the clock), seeds alike and draws the same global batches; each
+trains on its block of them (:mod:`esrnerf_tpu_torch.parallel.mesh`).
+Rank 0 alone writes the log dir.
 """
 
 from __future__ import annotations
@@ -79,31 +90,45 @@ def main(argv=None):
                         help="dot-overrides like app.phase=train")
     args = parser.parse_args(argv)
 
-    from esrnerf_tpu_torch.apps.base import device_from_cfg, import_class
+    import torch.distributed as dist
+
+    from esrnerf_tpu_torch.apps.base import import_class
     from esrnerf_tpu_torch.config import customize_cfg, load_cfg, save_cfg
+    from esrnerf_tpu_torch.parallel.mesh import init_distributed
     from esrnerf_tpu_torch.utils.logging import seed_everything
 
-    cfg = customize_cfg(load_cfg(args.config_name, args.overrides))
+    cfg = load_cfg(args.config_name, args.overrides)
     cls = cfg.app["cls"]
     cls_path = STAGE_REGISTRY.get(cls)
     if cls_path is None:
         raise KeyError(f"unknown app.cls '{cls}'")
-    device_from_cfg(cfg)  # raise before any output without CUDA
+    own_group = not dist.is_initialized()
+    world = init_distributed(cfg)  # raises before any output without CUDA
+    own_group = own_group and world.n > 1
+    try:
+        if world.n > 1:  # rank 0's config, before anything reads log.dir
+            box = [cfg if world.is_writer else None]
+            dist.broadcast_object_list(box, src=0)
+            cfg = box[0]
+        cfg = customize_cfg(cfg)
+        if world.is_writer:
+            os.makedirs(cfg.log["dir"], exist_ok=True)
+            save_cfg(cfg)
+            _snapshot_code(cfg.log["dir"])
+        seed_everything(cfg.system["seed"])
 
-    os.makedirs(cfg.log["dir"], exist_ok=True)
-    save_cfg(cfg)
-    _snapshot_code(cfg.log["dir"])
-    seed_everything(cfg.system["seed"])
-
-    method = import_class(cls_path)(cfg)
-    t0 = time.perf_counter()
-    method.load_dataset()
-    method.timings["data_s"] = time.perf_counter() - t0
-    method.load_model()
-    method.timings["setup_s"] = time.perf_counter() - t0
-    method.process()
-    if method.logger is not None:
-        method.logger.finish()
+        method = import_class(cls_path)(cfg)
+        t0 = time.perf_counter()
+        method.load_dataset()
+        method.timings["data_s"] = time.perf_counter() - t0
+        method.load_model()
+        method.timings["setup_s"] = time.perf_counter() - t0
+        method.process()
+        if method.logger is not None:
+            method.logger.finish()
+    finally:
+        if own_group:
+            dist.destroy_process_group()
     return method
 
 

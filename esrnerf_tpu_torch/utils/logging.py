@@ -5,6 +5,8 @@ Port of ``esrnerf_tpu/utils/logging.py``. Scalars always land in
 ``metrics.jsonl`` under the log dir; when wandb imports and ``log.offline``
 is unset they also go to wandb, with eval media. Media are written to disk
 by the trainers either way (``text/``, ``image/``, ``video/``, ``mesh/``).
+On a world of data-parallel ranks, rank 0 logs and shows the progress bar;
+the other ranks' loggers and bars are silent.
 """
 
 from __future__ import annotations
@@ -25,15 +27,26 @@ except Exception:  # noqa: BLE001
     _wandb = None
 
 
-class Logger:
-    """Scalar/media logger. One instance per run."""
+def _is_rank0() -> bool:
+    import torch.distributed as dist
 
-    def __init__(self, cfg):
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
+class Logger:
+    """Scalar/media logger. One instance per run; with ``enabled`` False
+    (a rank other than 0) it opens nothing and writes nothing."""
+
+    def __init__(self, cfg, enabled: bool = True):
         self.cfg = cfg
         self.dir = cfg.log["dir"]
+        self._jsonl = None
+        self._wandb_run = None
+        if not enabled:
+            return
         os.makedirs(self.dir, exist_ok=True)
         self._jsonl = open(os.path.join(self.dir, "metrics.jsonl"), "a")
-        self._wandb_run = None
         if _wandb is not None and not cfg.log.get("offline", False):
             try:
                 self._wandb_run = _wandb.init(
@@ -50,6 +63,8 @@ class Logger:
                 print(f"wandb init failed ({e!r}); logging to JSONL only")
 
     def log(self, scalars: Dict[str, Any], step: int) -> None:
+        if self._jsonl is None:
+            return
         clean = {
             k: float(v)
             for k, v in scalars.items()
@@ -82,16 +97,18 @@ class Logger:
             self._wandb_run.log(payload, step=step)
 
     def finish(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._wandb_run is not None:
             self._wandb_run.finish()
 
 
 def tqdm_safe(iterator, cfg=None, **kwargs):
     """tqdm progress over ``iterator`` honouring ``system.debug`` (no bar)
-    and ``system.tqdm_iters``; the bare iterator when tqdm is missing."""
+    and ``system.tqdm_iters``; the bare iterator when tqdm is missing or on
+    a rank other than 0."""
     debug = bool(cfg and cfg.get_path("system.debug"))
-    if debug:
+    if debug or not _is_rank0():
         return iterator
     try:
         from tqdm.auto import tqdm

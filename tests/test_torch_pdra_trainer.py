@@ -325,8 +325,8 @@ def test_run_main_pdra_train_and_relight_on_cpu(scene, monkeypatch):
     starts = []
     real = tpdra.build_finetune_step
 
-    def recording(model, opt, w):  # built once per test image
-        step, calls = real(model, opt, w), []
+    def recording(model, opt, w, *args):  # built once per test image
+        step, calls = real(model, opt, w, *args), []
 
         def first(trainable, *a, **kw):
             if not calls:
