@@ -1492,7 +1492,7 @@ def train_pdra_full_width(device, num_voxels, batch, warmup=2, timed=10,
 
 # record_function ranges of the stages' train steps (``<stage>/<phase>``)
 STAGE_RANGES = ("fine/", "alphamask/", "coarse/", "lts/", "pdra/",
-                "relight/")
+                "relight/", "fsdp/")
 
 
 def profile_steps(device, run, n=3):
@@ -2917,20 +2917,28 @@ DP_RECIPE = [*SMALL_ESR, *DP_BUDGET, "app.model.ray_sampling=fib",
              "app.trainer.normal_eps=0.0", "app.trainer.emit_eps=0.0",
              "app.trainer.weight_normal_smooth=0.0",
              f"app.model.num_ltspts={64 * 24}"]
+# the gspmd small steps: the LTS family with its real draws (random
+# scattering, the configs' perturbation eps, 16 surface points chosen over
+# both ranks' head rows)
+DP_REAL = [*SMALL_ESR, *DP_BUDGET]
 DP_FT_PPR = 8
 DP_KINDS = ("fine", "alphamask", "coarse", "lts", "pdra", "finetune")
 # loss-term positions in each small step's aux
 DP_TERMS = {"fine": [0, 1], "alphamask": [0], "coarse": [0],
             "lts": [0, 1, 2, 3], "pdra": [0, 1, 2, 3, 9, 10, 11],
             "finetune": [0]}
+# the overflow's position in each small step's aux (alphamask has none)
+DP_OVERFLOW = {"fine": 2, "alphamask": None, "coarse": 1, "lts": 4,
+               "pdra": 4, "finetune": 1}
 
 
-def dp_small_step(kind, device, sh, seed=0):
+def dp_small_step(kind, device, sh, seed=0, gspmd=False):
     """One small step of ``kind`` (the check phases' set-ups, the LTS
-    family on the layout-invariant recipe) on the rank's block of its
-    64-ray batch with the ranks' helpers ``sh`` (the one-device step with
-    the world-1 helpers); returns the step's (all-reduced) gradients on the
-    CPU and its aux."""
+    family on the layout-invariant recipe, or with ``gspmd`` on its real
+    draws) on the rank's block of its 64-ray batch with the ranks' helpers
+    ``sh`` (``gspmd`` ones for a gspmd step; the one-device step with the
+    world-1 helpers); returns the step's (all-reduced) gradients on the CPU
+    and its aux."""
     import torch
 
     from esrnerf_tpu_torch.apps.alphamask import build_alphamask_train_step
@@ -3002,10 +3010,11 @@ def dp_small_step(kind, device, sh, seed=0):
                 {k: 1.0 for k in params}, 1.0, 0.1, 0.05)
     else:
         build = build_lts if kind == "lts" else build_pdra
-        extra = DP_RECIPE + ([f"app.model.num_ltspts={64 * DP_FT_PPR}"]
-                             if kind == "finetune" else [])
+        extra = DP_REAL if gspmd else DP_RECIPE + (
+            [f"app.model.num_ltspts={64 * DP_FT_PPR}"]
+            if kind == "finetune" else [])
         cfg, model = build(device, 32**3, extra, mask_res=16)
-        model.lts_points_divisor = sh.n
+        model.lts_points_divisor = 1 if gspmd else sh.n
         params = _to(_small_esr_params(model, seed), device)
         gen = sh.fold_generator(device, seed, 0)
         if kind == "finetune":
@@ -3031,7 +3040,16 @@ def dp_small_step(kind, device, sh, seed=0):
     return _to(grads, "cpu"), [float(x) for x in aux]
 
 
-def dp_full_width(device, sh, warmup=2, timed=5):
+def _persistent_bytes(params, state) -> int:
+    """Bytes the rank keeps between steps: parameters and Adam moments."""
+    from esrnerf_tpu_torch.apps.base import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for tree in (params, state.mu, state.nu)
+               for _, t in tree_leaves(tree))
+
+
+def dp_full_width(device, sh, warmup=2, timed=3):
     """The fine step at full width (``train_full_width``'s set-up: 256^3,
     192-wide heads, 8,192 rays) on the rank's 8,192 / n rays: the first
     step's all-reduced gradients with f32 heads (against the one-device
@@ -3122,6 +3140,7 @@ def dp_full_width(device, sh, warmup=2, timed=5):
     prof = profile_steps(device, lambda i: run(50 + i))
     out.update({
         "rays_per_rank": N_RAYS // sh.n, "timed_steps": timed,
+        "persistent_bytes": _persistent_bytes(params, state),
         "step_ms_median": float(np.median(times)), "step_ms_all": times,
         "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
         "device_launches_per_step": prof["device_launches_per_step"],
@@ -3133,6 +3152,138 @@ def dp_full_width(device, sh, warmup=2, timed=5):
                               if v},
         "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                      if device.type == "cuda" else None),
+        "mse_first": float(aux[0, 0]), "mse_last": float(aux[-1, 0]),
+        "overflow_max": float(aux[:, 2].max()),
+        "k1_frac_max": float(aux[:, 3].max()),
+        "k2_frac_max": float(aux[:, 4].max()),
+    })
+    return out
+
+
+def dp_fsdp_full_width(device, sh, warmup=2, timed=3):
+    """The fine step at full width under ``gspmd`` + ``fsdp`` (``sh``: the
+    ranks' gspmd helpers): 256^3, 192-wide heads, 8,192 rays, the rank's
+    8,192 / n of them, every grid and its Adam moments kept as the rank's
+    X-slab. The first f32 step's slab gradients, gathered, against the
+    one-device step on all 8,192 rays (rank 0; each group within 1e-4 of
+    its largest); the slabs' all-gather and the gradients' reduce-scatter
+    ms (host clock around synchronised calls, three each); then with the
+    config's bf16 heads ``warmup`` + ``timed`` Adam steps (overflow 0,
+    finite losses, K-1..K-4 launched), a profile of three more (busy ms,
+    launches, the all-gather, reduce-scatter and SDF TV phases), the peak
+    memory and the persistent parameter-plus-moment bytes."""
+    import torch
+
+    from esrnerf_tpu_torch.apps.base import tree_leaves
+    from esrnerf_tpu_torch.apps.fine import build_fine_train_step
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.optim import Adam
+    from esrnerf_tpu_torch.parallel.mesh import (ParamLayout, ShardHelpers,
+                                                shard_rows)
+
+    cfg, model = build_fine(device, NUM_VOXELS,
+                            ["system.compute_dtype=float32"])
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    layout = ParamLayout(sh, fsdp=True)
+    slabs = layout.place(params)
+    batches = [make_batch(i, N_RAYS, device) for i in range(4)]
+    local = [{k: shard_rows(v, sh.rank, sh.n) for k, v in b.items()}
+             for b in batches]
+
+    def args(i):
+        a = step_args(cfg, i, N_RAYS)
+        return (a["s_val"], a["lr_scales"], a["tv_flag"],
+                a["smooth_grad_tv"], a["sdf_tv_w"], a["tv_dense"])
+
+    out = {"sharded": sorted("/".join(p) for p in layout.paths)}
+    grads = build_fine_train_step(model, _GradsOut(), cfg, device=device,
+                                  sh=sh, layout=layout)(
+        slabs, None, local[0], *args(0))[0]
+    whole_grads = layout.gather(grads)
+    if sh.rank == 0:
+        want = build_fine_train_step(
+            model, _GradsOut(), cfg, device=device, sh=ShardHelpers())(
+            params, None, batches[0], *args(0))[0]
+        out["first_step_grad_err_rel"] = assert_grads_close(
+            _to(want, "cpu"), whole_grads)
+        del want
+    del params
+
+    def timed_ms(fn, runs=5):
+        ms = []
+        for _ in range(runs):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    grid_grads = [g for p, g in tree_leaves(whole_grads)
+                  if p in layout.paths]
+    ag = timed_ms(lambda: layout.gather(slabs), runs=3)
+    rs = timed_ms(lambda: [sh.reduce_scatter_flat(g) for g in grid_grads],
+                  runs=3)
+    out.update({
+        "all_gather_ms": float(np.median(ag)), "all_gather_ms_all": ag,
+        "reduce_scatter_ms": float(np.median(rs)),
+        "reduce_scatter_ms_all": rs,
+        "gathered_mb": sum(g.numel() * g.element_size()
+                           for g in grid_grads) / 2**20,
+    })
+    del grads, whole_grads, grid_grads, model
+
+    cfg, model = build_fine(device, NUM_VOXELS)
+    opt = Adam(dict(cfg.app.trainer.lrs))
+    state = opt.init(slabs)
+    step = build_fine_train_step(model, opt, cfg, device=device, sh=sh,
+                                 layout=layout)
+
+    def run(i):
+        nonlocal slabs, state
+        slabs, state, aux = step(slabs, state, local[i % 4], *args(i))
+        return aux
+
+    for i in range(warmup):
+        run(i)
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    times, auxes = [], []
+    for i in range(timed):
+        t0 = time.perf_counter()
+        auxes.append(run(warmup + i))
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.launches)
+    aux = torch.stack([torch.stack(a) for a in auxes]).cpu().numpy()
+    if not np.isfinite(aux).all():
+        raise AssertionError(f"fsdp rank {sh.rank}: non-finite losses {aux}")
+    if aux[:, 2].max() != 0.0:
+        raise AssertionError(f"fsdp rank {sh.rank}: march overflow "
+                             f"{aux[:, 2].max()}")
+    missing = [k for k in _CAPTURED if launches[k] == 0]
+    if missing and device.type == "cuda":
+        raise AssertionError(f"fsdp rank {sh.rank}: kernels not launched: "
+                             f"{missing}")
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else None)
+    prof = profile_steps(device, lambda i: run(50 + i))
+    phase = lambda k: prof["phases_ms_per_step"].get(k, {})
+    out.update({
+        "rays_per_rank": N_RAYS // sh.n, "timed_steps": timed,
+        "persistent_bytes": _persistent_bytes(slabs, state),
+        "step_ms_median": float(np.median(times)), "step_ms_all": times,
+        "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+        "device_launches_per_step": prof["device_launches_per_step"],
+        "all_gather_phase_ms": phase("fine/all_gather"),
+        "reduce_scatter_phase_ms": phase("fsdp/reduce_scatter"),
+        "allreduce_phase_ms": phase("fine/grad_allreduce"),
+        "sdf_tv_grad_phase_ms": phase("fine/sdf_tv_grad"),
+        "launches_per_step": {k: v / timed for k, v in launches.items()
+                              if v},
+        "peak_gib": peak,
         "mse_first": float(aux[0, 0]), "mse_last": float(aux[-1, 0]),
         "overflow_max": float(aux[:, 2].max()),
         "k1_frac_max": float(aux[:, 3].max()),
@@ -3164,19 +3315,33 @@ def _dp_rank(rank, n, init, backend, outq):
             backend, init_method=init, rank=rank, world_size=n,
             timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
         sh = ShardHelpers(n, rank, backend=backend)
-        res = {"rank": rank, "device": str(device), "small": {}}
-        for kind in DP_KINDS:
-            g, aux = dp_small_step(kind, device, sh)
-            if rank == 0:
-                g1, aux1 = dp_small_step(kind, device, ShardHelpers())
-                t = DP_TERMS[kind]
-                np.testing.assert_allclose([aux[i] for i in t],
-                                           [aux1[i] for i in t], rtol=1e-5)
-                res["small"][kind] = {
-                    "loss": aux[0], "loss_one_device": aux1[0],
-                    "max_grad_err_rel": assert_grads_close(g1, g)}
-            sh.barrier()
+        gsh = ShardHelpers(n, rank, backend=backend, gspmd=True)
+        res = {"rank": rank, "device": str(device), "small": {},
+               "gspmd_small": {}}
+        for key, helpers, gspmd in (("small", sh, False),
+                                    ("gspmd_small", gsh, True)):
+            for kind in DP_KINDS:
+                g, aux = dp_small_step(kind, device, helpers, gspmd=gspmd)
+                if rank == 0:
+                    g1, aux1 = dp_small_step(kind, device, ShardHelpers(),
+                                             gspmd=gspmd)
+                    t = DP_TERMS[kind]
+                    np.testing.assert_allclose([aux[i] for i in t],
+                                               [aux1[i] for i in t],
+                                               rtol=1e-5)
+                    i = DP_OVERFLOW[kind]
+                    if i is not None and (aux[i] != 0.0 or aux1[i] != 0.0):
+                        raise AssertionError(
+                            f"{key} {kind}: overflow {aux[i]} (one device "
+                            f"{aux1[i]})")
+                    res[key][kind] = {
+                        "loss": aux[0], "loss_one_device": aux1[0],
+                        "max_grad_err_rel": assert_grads_close(g1, g)}
+                helpers.barrier()
         res.update(dp_full_width(device, sh))
+        torch.cuda.empty_cache()
+        res["fsdp"] = dp_fsdp_full_width(device, gsh)
+        res["fsdp"]["replicated_persistent_bytes"] = res["persistent_bytes"]
         dist.destroy_process_group()
         outq.put((rank, True, res))
     except BaseException:  # the parent raises it

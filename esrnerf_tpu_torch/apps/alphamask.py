@@ -16,20 +16,21 @@ from __future__ import annotations
 import os
 import shutil
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from esrnerf_tpu_torch.apps.base import (AppClass, composite_white_bg,
-                                         import_class, loss_and_grads,
-                                         srgb_metrics)
+                                         gathers_params, import_class,
+                                         loss_and_grads, srgb_metrics)
 from esrnerf_tpu_torch.config import save_cfg
 from esrnerf_tpu_torch.data.sampler import BatchSampler
 from esrnerf_tpu_torch.models.dvgo import DVGO
 from esrnerf_tpu_torch.optim import Adam, exp_decay_factor, make_pervoxel_lr
-from esrnerf_tpu_torch.parallel.mesh import ShardHelpers, shard_rows
+from esrnerf_tpu_torch.parallel.mesh import (ParamLayout, ShardHelpers,
+                                            shard_rows)
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import loss2psnr
@@ -64,11 +65,15 @@ def alphamask_loss(model: DVGO, params, batch, *, w_ent: float,
 
 
 def build_alphamask_train_step(model: DVGO, opt: Adam, cfg, device="cuda",
-                               sh: ShardHelpers = ShardHelpers()
+                               sh: ShardHelpers = ShardHelpers(),
+                               layout: Optional[ParamLayout] = None
                                ) -> Callable:
     """The alphamask train step, on one device or (``sh`` of a world of
     ranks) data-parallel over the ranks' blocks of the batch (the MSE
-    global, the gradients summed over the ranks before Adam).
+    global, the gradients summed over the ranks before Adam). With a
+    ``layout`` of X-slabs (``fsdp``) the parameters, moments and
+    ``per_lr`` are the rank's slabs (:func:`~esrnerf_tpu_torch.apps.base.
+    loss_and_grads`).
 
     Returns ``train_step(params, opt_state, batch, lr_scale, per_lr,
     generator=None, rand_shift=None) -> (params, opt_state, mse)``: one
@@ -92,7 +97,7 @@ def build_alphamask_train_step(model: DVGO, opt: Adam, cfg, device="cuda",
         mse, grads = loss_and_grads(
             lambda p: alphamask_loss(model, p, batch, generator=generator,
                                      rand_shift=rand_shift, sh=sh, **kw),
-            params, "alphamask", sh)
+            params, "alphamask", sh, layout)
         with record_function("alphamask/adam"):
             params, opt_state = opt.step(
                 params, grads, opt_state,
@@ -232,9 +237,11 @@ class AlphaMask(AppClass):
     def learn(self) -> None:
         decay = exp_decay_factor(self.lr_decay)
         self.check_shardable(self.train_bs)
+        self.place_params()
         step_fn = build_alphamask_train_step(self.renderer, self.opt,
                                              self.cfg, device=self.device,
-                                             sh=self.shard_helpers())
+                                             sh=self.shard_helpers(),
+                                             layout=self.layout)
         # one stream on every rank: each draws the global batch's sample
         # shifts and keeps its rows, as one device would draw them
         gen = step_generator(self.device, self.cfg.system["seed"],
@@ -290,6 +297,7 @@ class AlphaMask(AppClass):
         if self.is_writer:
             save_cfg(self.cfg)
 
+    @gathers_params(state=True)
     def save(self, path: str) -> None:
         self.save_timed(path, {
             "renderer": {
@@ -308,6 +316,7 @@ class AlphaMask(AppClass):
 
     # ----------------------------------------------------------------- eval
 
+    @gathers_params()
     def evaluate(self, N_vis: int = -1) -> None:
         """Renders and sRGB metrics of the test images (all, or about
         ``N_vis`` of them)."""

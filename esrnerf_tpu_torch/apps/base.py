@@ -15,8 +15,12 @@ media writing.
 Data parallelism (:mod:`esrnerf_tpu_torch.parallel.mesh`, a world of more
 than one rank under ``torchrun``): :meth:`AppClass.place_batch` keeps the
 rank's block of a batch's rows, the train steps fold their losses and
-gradients with :meth:`AppClass.shard_helpers`, the eval sweeps split each
-chunk over the ranks and gather the rows back
+gradients with :meth:`AppClass.shard_helpers` (``system.parallel``:
+``shard_map`` or ``gspmd``), :meth:`AppClass.place_params` keeps the
+parameters and Adam moments replicated or, with ``system.param_shard=fsdp``
+under ``gspmd``, as X-slabs (:attr:`AppClass.layout`), which
+:meth:`AppClass.whole_params` gathers for an eval, a mesh or a checkpoint;
+the eval sweeps split each chunk over the ranks and gather the rows back
 (:meth:`AppClass.run_chunk`), and rank 0 alone writes logs, checkpoints and
 eval files. At world 1 none of it adds a launch.
 
@@ -28,6 +32,7 @@ the next call.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 import time
@@ -38,9 +43,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from esrnerf_tpu_torch.parallel.mesh import (ShardHelpers,
+from esrnerf_tpu_torch.parallel.mesh import (ParamLayout, ShardHelpers,
                                             check_parallel_cfg,
-                                            current_world, shard_rows)
+                                            current_world, parallel_layout,
+                                            shard_rows)
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import png
 from esrnerf_tpu_torch.utils.logging import Logger, tqdm_safe
@@ -74,27 +80,57 @@ def tree_unflatten(paths, values) -> Dict:
 
 
 def loss_and_grads(loss_fn: Callable, params, tag: str,
-                   sh: Optional[ShardHelpers] = None):
+                   sh: Optional[ShardHelpers] = None,
+                   layout: Optional[ParamLayout] = None):
     """``loss_fn(p) -> (loss, aux)`` on a differentiable copy of the
     parameter tree; returns ``(aux, grads)`` with ``grads`` shaped like
     ``params`` (zeros where a leaf got no gradient). The loss and the
     backward run inside ``record_function`` ranges ``<tag>/loss`` and
     ``<tag>/backward``. On a world of ranks (``sh``) the gradients are then
     summed over the ranks (``<tag>/grad_allreduce``): ``loss_fn`` folds its
-    terms with ``sh`` (recipe B), so the sum is the global gradient."""
+    terms with ``sh`` (recipe B), so the sum is the global gradient.
+
+    With a ``layout`` whose leaves are X-slabs (``fsdp``), ``loss_fn``
+    sees the whole grids (``<tag>/all_gather``), the backward
+    reduce-scatters their gradients to the slabs, and only the replicated
+    leaves go through the all-reduce."""
     flat = tree_leaves(params)
     paths = [p for p, _ in flat]
     leaves = [t.detach().requires_grad_(True) for _, t in flat]
+    slabs = [i for i, p in enumerate(paths)
+             if layout is not None and p in layout.paths]
+    inputs = list(leaves)
+    if slabs:
+        with record_function(f"{tag}/all_gather"):
+            whole = layout.gather_for_grad([leaves[i] for i in slabs])
+        for i, w in zip(slabs, whole):
+            inputs[i] = w
     with record_function(f"{tag}/loss"):
-        loss, aux = loss_fn(tree_unflatten(paths, leaves))
+        loss, aux = loss_fn(tree_unflatten(paths, inputs))
     with record_function(f"{tag}/backward"):
         gl = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = tree_unflatten(paths, [torch.zeros_like(t) if g is None
-                                   else g for t, g in zip(leaves, gl)])
+    gl = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, gl)]
     if sh is not None and sh.n > 1:
         with record_function(f"{tag}/grad_allreduce"):
-            sh.all_reduce_grads(grads)
-    return aux, grads
+            sh.all_reduce_grads({i: g for i, g in enumerate(gl)
+                                 if i not in slabs})
+    return aux, tree_unflatten(paths, gl)
+
+
+def gathers_params(state: bool = False) -> Callable:
+    """Decorator: the method runs inside :meth:`AppClass.whole_params` (an
+    eval, a regroup or, with ``state``, a checkpoint reads the whole
+    grids)."""
+
+    def deco(method: Callable) -> Callable:
+        @functools.wraps(method)
+        def wrapped(self, *args, **kw):
+            with self.whole_params(state):
+                return method(self, *args, **kw)
+
+        return wrapped
+
+    return deco
 
 
 def composite_white_bg(imgs: Dict[str, np.ndarray],
@@ -133,8 +169,14 @@ class AppClass:
         self.world = current_world(cfg)
         check_parallel_cfg(cfg, self.world.n)
         self.device = self.world.device
+        mode, shard = parallel_layout(cfg)
         self._sh = ShardHelpers(self.world.n, self.world.rank,
-                                backend=self.world.backend)
+                                backend=self.world.backend,
+                                gspmd=mode == "gspmd")
+        # fsdp under gspmd only: shard_map keeps the parameters replicated
+        self.layout = ParamLayout(self._sh,
+                                  fsdp=shard == "fsdp" and mode == "gspmd")
+        self._whole: set = set()  # what whole_params has gathered
         # wall-clock seconds of the last eval, mesh and checkpoint
         self.timings: Dict[str, float] = {}
 
@@ -159,12 +201,18 @@ class AppClass:
 
     @property
     def parallel_mode(self) -> str:
-        """'single' (one rank) or 'shard_map' (data-parallel ranks)."""
-        return "single" if self.world.n == 1 else "shard_map"
+        """'single' (one rank), or on data-parallel ranks
+        ``system.parallel``: 'shard_map' or 'gspmd'."""
+        return ("single" if self.world.n == 1
+                else parallel_layout(self.cfg)[0])
 
     @property
     def num_shards(self) -> int:
-        return self.world.n
+        """The shards a step's LTS point selection is split into: the
+        world under ``shard_map``, 1 under ``gspmd`` (world 1's choice),
+        as the JAX package's. The ranks split the rows in both
+        (``world.n``)."""
+        return self.world.n if self.parallel_mode == "shard_map" else 1
 
     @property
     def is_writer(self) -> bool:
@@ -177,11 +225,55 @@ class AppClass:
         return self._sh
 
     def check_shardable(self, batch_size: int) -> None:
+        """Under ``shard_map`` a batch must divide the world (``gspmd``
+        passes, as the JAX package's; :meth:`place_batch` still refuses
+        rows that do not divide)."""
         if self.parallel_mode == "shard_map" and batch_size % self.num_shards:
             raise ValueError(
                 f"batch_size={batch_size} not divisible by "
                 f"{self.num_shards} shards; adjust app.trainer.batch_size "
                 "or set system.parallel=gspmd")
+
+    def place_params(self) -> None:
+        """Parameters, Adam moments and a per-voxel LR (``per_lr``, where
+        the stage has one) as the layout keeps them: replicated, or under
+        ``fsdp`` each dividing grid as the rank's X-slab (the JAX package's
+        ``place_replicated``). A trainer calls it once its whole tree is
+        loaded (fresh, resumed or from the previous stage) and again after
+        a rescale."""
+        self.params = self.layout.place(self.params)
+        if getattr(self, "opt_state", None) is not None:
+            self.opt_state = self.layout.place_state(self.opt_state)
+        if getattr(self, "per_lr", None) is not None:
+            self.per_lr = self.layout.slice(self.per_lr)
+
+    @contextlib.contextmanager
+    def whole_params(self, state: bool = False):
+        """Context: ``params`` and, with ``state``, ``opt_state`` and
+        ``per_lr`` gathered into whole grids (under ``fsdp``; else as they
+        are), the rank's slabs back on exit. An eval, a mesh or a regroup
+        runs inside it, a checkpoint with ``state``; every rank enters it
+        (the gathers are collectives). A nested use gathers only what the
+        outer one left out."""
+        names = [k for k in ("params",) + (("opt_state", "per_lr") if state
+                                           else ())
+                 if getattr(self, k, None) is not None
+                 and k not in self._whole]
+        if not self.layout.paths or not names:
+            yield
+            return
+        keep = {k: getattr(self, k) for k in names}
+        for k in names:
+            gather = (self.layout.gather_state if k == "opt_state"
+                      else self.layout.gather)
+            setattr(self, k, gather(keep[k]))
+        self._whole |= set(names)
+        try:
+            yield
+        finally:
+            self._whole -= set(names)
+            for k, v in keep.items():
+                setattr(self, k, v)
 
     def to_device(self, array) -> torch.Tensor:
         """Host array -> tensor on the device. On CUDA it goes through
@@ -197,7 +289,8 @@ class AppClass:
     def place_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A host batch on the device: the rank's contiguous block of its
         rows on a world of ranks (every rank samples the same global
-        batch)."""
+        batch). Rows that do not divide the world raise ``ValueError``
+        under either layout."""
         n, r = self.world.n, self.world.rank
         return {k: self.to_device(shard_rows(v, r, n))
                 for k, v in batch.items()}

@@ -18,7 +18,7 @@ from __future__ import annotations
 import os
 import shutil
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -26,14 +26,15 @@ from torch.profiler import record_function
 
 from esrnerf_tpu_torch.apps.alphamask import entropy_last
 from esrnerf_tpu_torch.apps.base import (AppClass, composite_white_bg,
-                                         import_class, loss_and_grads,
-                                         srgb_metrics)
+                                         gathers_params, import_class,
+                                         loss_and_grads, srgb_metrics)
 from esrnerf_tpu_torch.config import save_cfg
 from esrnerf_tpu_torch.data.sampler import BatchSampler
-from esrnerf_tpu_torch.models.voxurf_base import make_mask_cache
+from esrnerf_tpu_torch.models.voxurf_base import (fold_counters,
+                                                  make_mask_cache)
 from esrnerf_tpu_torch.models.voxurfc import VoxurfC
 from esrnerf_tpu_torch.optim import Adam, exp_decay_factor
-from esrnerf_tpu_torch.parallel.mesh import ShardHelpers
+from esrnerf_tpu_torch.parallel.mesh import ParamLayout, ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import mesh as meshutil
 from esrnerf_tpu_torch.utils.device import resolve_device
@@ -66,7 +67,8 @@ def coarse_loss(model: VoxurfC, params, batch, s_val, tv_flag, sdf_tv,
     reference indexes ``[..., -1]`` into the per-ray transmittance (on a
     world of ranks the global last ray, on the last rank). ``sh`` folds
     the terms over the ranks (the TV divided by the world). Returns
-    ``(loss, (mse, overflow, k1_frac, k2_frac))``."""
+    ``(loss, (mse, counts, (overflow, k1_frac, k2_frac)))`` with the
+    rank's march counts and its own fractions of them."""
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], s_val)
@@ -80,15 +82,19 @@ def coarse_loss(model: VoxurfC, params, batch, s_val, tv_flag, sdf_tv,
                                                     smooth_grad_tv)
               + w_tvc * model.color_total_variation(params))
         loss = loss + tv_flag * (tv / sh.n if sh.n > 1 else tv)
-    return loss, (mse, res["etc/overflow"], res["etc/k1_frac"],
-                  res["etc/k2_frac"])
+    return loss, (mse, res["etc/counts"], (
+        res["etc/overflow"], res["etc/k1_frac"], res["etc/k2_frac"]))
 
 
 def build_coarse_train_step(model: VoxurfC, opt: Adam, cfg, device="cuda",
-                            sh: ShardHelpers = ShardHelpers()) -> Callable:
+                            sh: ShardHelpers = ShardHelpers(),
+                            layout: Optional[ParamLayout] = None
+                            ) -> Callable:
     """The coarse train step, on one device or (``sh`` of a world of
     ranks) data-parallel over the ranks' blocks of the batch (global
-    losses, counters the maximum over the ranks).
+    losses, counters folded by
+    :func:`~esrnerf_tpu_torch.models.voxurf_base.fold_counters`; X-slab
+    parameters with an ``fsdp`` ``layout``).
 
     Returns ``train_step(params, opt_state, batch, s_val, lr_scales,
     tv_flag, sdf_tv, smooth_grad_tv) -> (params, opt_state, (mse,
@@ -115,12 +121,13 @@ def build_coarse_train_step(model: VoxurfC, opt: Adam, cfg, device="cuda",
         aux, grads = loss_and_grads(
             lambda p: coarse_loss(model, p, batch, s_val, tv_flag, sdf_tv,
                                   smooth_grad_tv, sh=sh, **kw),
-            params, "coarse", sh)
+            params, "coarse", sh, layout)
         with record_function("coarse/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
-        mse, *counters = (a.detach() for a in aux)
-        return params, opt_state, (mse, *(sh.gmax(c) for c in counters))
+        mse, counts, fractions = aux
+        return params, opt_state, (mse.detach(),
+                                   *fold_counters((counts,), fractions, sh))
 
     return train_step
 
@@ -291,9 +298,11 @@ class Coarse(AppClass):
     def learn(self) -> None:
         decay = exp_decay_factor(self.lr_decay)
         self.check_shardable(self.train_bs)
+        self.place_params()
         step_fn = build_coarse_train_step(self.renderer, self.opt, self.cfg,
                                           device=self.device,
-                                          sh=self.shard_helpers())
+                                          sh=self.shard_helpers(),
+                                          layout=self.layout)
         ckpt_dir = self.ckpt_dir()
         ckpt_path = os.path.join(ckpt_dir, "last.ckpt")
         logger = self.get_logger()
@@ -355,6 +364,7 @@ class Coarse(AppClass):
         if self.is_writer:
             save_cfg(self.cfg)
 
+    @gathers_params(state=True)
     def save(self, path: str) -> None:
         self.save_timed(path, {
             "renderer": {
@@ -374,6 +384,7 @@ class Coarse(AppClass):
 
     # ----------------------------------------------------------------- eval
 
+    @gathers_params()
     def evaluate(self, N_vis: int = -1) -> None:
         """Renders (with the march-budget retry), sRGB metrics and a mesh
         of the test images (all, or about ``N_vis`` of them); with the

@@ -19,21 +19,22 @@ from __future__ import annotations
 import os
 import shutil
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from esrnerf_tpu_torch.apps.base import AppClass, import_class, loss_and_grads
+from esrnerf_tpu_torch.apps.base import (AppClass, gathers_params,
+                                         import_class, loss_and_grads)
 from esrnerf_tpu_torch.config import save_cfg
 from esrnerf_tpu_torch.data.base import LightDict
 from esrnerf_tpu_torch.data.sampler import BatchSampler
-from esrnerf_tpu_torch.models.voxurf_base import make_mask_cache
+from esrnerf_tpu_torch.models.voxurf_base import fold_counters, make_mask_cache
 from esrnerf_tpu_torch.models.voxurff import VoxurfF
 from esrnerf_tpu_torch.ops.image import apply_gamma_curve
 from esrnerf_tpu_torch.optim import Adam, CosineLR
-from esrnerf_tpu_torch.parallel.mesh import ShardHelpers
+from esrnerf_tpu_torch.parallel.mesh import ParamLayout, ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import mesh as meshutil
 from esrnerf_tpu_torch.utils.device import resolve_device
@@ -48,8 +49,9 @@ def fine_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, *,
     term plus ``tv_flag * density_total_variation``, each folded over the
     ranks by ``sh`` (the means global, the entropy the global last ray's,
     the TV divided by the world so the summed gradient holds it once).
-    Returns ``(loss, (mse, lin_mse, overflow, k1_frac, k2_frac))`` with the
-    rank's march counters."""
+    Returns ``(loss, (mse, lin_mse, counts, (overflow, k1_frac,
+    k2_frac)))`` with the rank's march counts and its own fractions of
+    them."""
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], s_val,
@@ -73,12 +75,30 @@ def fine_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, *,
     if tv_flag:
         tv = model.density_total_variation(params, smooth_grad_tv)
         loss = loss + tv_flag * (tv / sh.n if sh.n > 1 else tv)
-    return loss, (mse, lin_mse, res["etc/overflow"], res["etc/k1_frac"],
-                  res["etc/k2_frac"])
+    return loss, (mse, lin_mse, res["etc/counts"], (
+        res["etc/overflow"], res["etc/k1_frac"], res["etc/k2_frac"]))
+
+
+def add_sdf_tv_grad(model, sdf, grads, tv_flag, sdf_tv_w, tv_dense,
+                    layout: Optional[ParamLayout] = None) -> None:
+    """The SDF TV of ``sdf``, the whole grid the loss read, as a gradient
+    term added in place to the global (reduced) ``grads["sdf"]``: dense,
+    or sparse on that gradient's nonzero pattern (so it sees the
+    one-device pattern). With an X-slab ``sdf`` (``fsdp``) the term is the
+    rank's slab's."""
+    if not tv_flag:
+        return
+    rows = (layout.rows(sdf) if layout is not None and layout.sharded("sdf")
+            else None)
+    tv_g = model.sdf_tv_grad(sdf, sdf_tv_w,
+                             sparse_grad=None if tv_dense else grads["sdf"],
+                             x_rows=rows)
+    grads["sdf"] = grads["sdf"] + tv_flag * tv_g
 
 
 def build_fine_train_step(model, opt, cfg, device="cuda",
-                          sh: ShardHelpers = ShardHelpers()) -> Callable:
+                          sh: ShardHelpers = ShardHelpers(),
+                          layout: Optional[ParamLayout] = None) -> Callable:
     """The fine train step, on one device or (``sh`` of a world of ranks)
     data-parallel over the ranks' blocks of the batch.
 
@@ -89,10 +109,11 @@ def build_fine_train_step(model, opt, cfg, device="cuda",
     rgbs`` tensors on the model's device; the scalars are Python numbers
     (``tv_dense`` a bool). Parameters and optimizer state are updated in
     place. The aux values stay on the device (no host sync); on a world of
-    ranks the losses are global and the counters the maximum over the
-    ranks. The gradients are summed over the ranks before the SDF TV
-    term, which is added once to the global gradient (so the sparse TV
-    sees the one-device nonzero pattern). The phases run inside
+    ranks the losses are global and the counters folded by
+    :func:`~esrnerf_tpu_torch.models.voxurf_base.fold_counters`. The
+    gradients are summed over the ranks before the SDF TV term
+    (:func:`add_sdf_tv_grad`). With an ``fsdp`` ``layout`` the grids and
+    their moments are the rank's X-slabs. The phases run inside
     ``torch.profiler.record_function`` ranges (``fine/loss``,
     ``fine/backward``, ``fine/grad_allreduce``, ``fine/sdf_tv_grad``,
     ``fine/adam``; the forward's own ``fine/march``, ``fine/features``,
@@ -115,26 +136,24 @@ def build_fine_train_step(model, opt, cfg, device="cuda",
 
     def train_step(params, opt_state, batch, s_val, lr_scales, tv_flag,
                    smooth_grad_tv, sdf_tv_w, tv_dense):
-        aux, grads = loss_and_grads(
-            lambda p: fine_loss(model, p, batch, s_val, tv_flag,
-                                smooth_grad_tv, w_ent=w_ent, w_lin=w_lin,
-                                white_bg=white_bg, sh=sh), params, "fine", sh)
+        whole = {}
 
-        # in-place SDF TV as a gradient term (dense, or sparse on the
-        # gradient's nonzero pattern)
-        if tv_flag:
-            with torch.no_grad(), record_function("fine/sdf_tv_grad"):
-                tv_g = model.sdf_tv_grad(
-                    params["sdf"], sdf_tv_w,
-                    sparse_grad=None if tv_dense else grads["sdf"])
-                grads["sdf"] = grads["sdf"] + tv_flag * tv_g
+        def loss_fn(p):
+            whole["sdf"] = p["sdf"].detach()  # gathered under fsdp
+            return fine_loss(model, p, batch, s_val, tv_flag, smooth_grad_tv,
+                             w_ent=w_ent, w_lin=w_lin, white_bg=white_bg,
+                             sh=sh)
 
+        aux, grads = loss_and_grads(loss_fn, params, "fine", sh, layout)
+        with torch.no_grad(), record_function("fine/sdf_tv_grad"):
+            add_sdf_tv_grad(model, whole.pop("sdf"), grads, tv_flag,
+                            sdf_tv_w, tv_dense, layout)
         with record_function("fine/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
-        mse, lin_mse, *counters = (a.detach() for a in aux)
-        return params, opt_state, (mse, lin_mse,
-                                   *(sh.gmax(c) for c in counters))
+        mse, lin_mse, counts, fractions = aux
+        return params, opt_state, (mse.detach(), lin_mse.detach(),
+                                   *fold_counters((counts,), fractions, sh))
 
     return train_step
 
@@ -314,9 +333,11 @@ class Fine(AppClass):
 
     def learn(self) -> None:
         self.check_shardable(self.train_bs)
+        self.place_params()
         step_fn = build_fine_train_step(self.renderer, self.opt, self.cfg,
                                         device=self.device,
-                                        sh=self.shard_helpers())
+                                        sh=self.shard_helpers(),
+                                        layout=self.layout)
         ckpt_dir = self.ckpt_dir()
         ckpt_path = os.path.join(ckpt_dir, "last.ckpt")
         logger = self.get_logger()
@@ -330,8 +351,12 @@ class Fine(AppClass):
         pbar = self.tqdm(range(self.global_step, self.n_iters), colour="green")
         for self.global_step in pbar:
             if self.global_step in self.pg_scale:
-                self.params = self.renderer.scale_volume_grid(
-                    self.params, self.renderer.num_voxels * self.scale_ratio)
+                # whole grids rescaled, then the sharding rule applied to
+                # the new shapes (fsdp), and a fresh optimizer state
+                self.params = self.layout.place(
+                    self.renderer.scale_volume_grid(
+                        self.layout.gather(self.params),
+                        self.renderer.num_voxels * self.scale_ratio))
                 self.opt_state = self.opt.init(self.params)
 
             batch = self.place_batch(self.sampler.sample())
@@ -396,6 +421,7 @@ class Fine(AppClass):
         if self.is_writer:
             save_cfg(self.cfg)
 
+    @gathers_params(state=True)
     def save(self, path: str) -> None:
         self.save_timed(path, {
             "renderer": {
@@ -442,6 +468,7 @@ class Fine(AppClass):
         (the PDRA stage's emission masks)."""
         return imgs
 
+    @gathers_params()
     def evaluate(self, N_vis: int = -1) -> None:
         """Renders (``forward_evaluate`` runs under ``torch.no_grad``),
         metrics and a mesh of the test images (all, or about ``N_vis`` of

@@ -5,8 +5,9 @@ Port of ``esrnerf_tpu/apps/lts.py``. The train step
 (:func:`build_lts_train_step`): ``ESRNeRF.forward_training`` -> loss (sRGB
 MSE + linear MSE + ``weight_lts`` x the masked off/emo reconstruction MSEs +
 the last-ray entropy + the normal-smoothness L1 + TV) -> backward ->
-gradient all-reduce over the ranks (at world > 1; each rank selects its
-share of the surface points from its own march) -> SDF TV gradient ->
+gradient all-reduce over the ranks (at world > 1; under ``shard_map`` each
+rank selects its share of the surface points from its own march, under
+``gspmd`` the ranks make world 1's choice together) -> SDF TV gradient ->
 per-group Adam. The trainer (:class:`LTS`): a warm start of the
 overlapping parameter groups from the fine stage's checkpoint (optionally
 the BRDF grid from the off colour grid), the two-pool
@@ -23,21 +24,23 @@ import functools
 import os
 import shutil
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from esrnerf_tpu_torch.apps.base import loss_and_grads
-from esrnerf_tpu_torch.apps.fine import Fine
+from esrnerf_tpu_torch.apps.base import gathers_params, loss_and_grads
+from esrnerf_tpu_torch.apps.fine import Fine, add_sdf_tv_grad
 from esrnerf_tpu_torch.config import save_cfg
 from esrnerf_tpu_torch.data.sampler import RayGroupManager
 from esrnerf_tpu_torch.models.esrnerf import ESRNeRF
+from esrnerf_tpu_torch.models.voxurf_base import (fold_counters,
+                                                  march_fractions)
 from esrnerf_tpu_torch.ops import pbr as pbrops
 from esrnerf_tpu_torch.ops.image import apply_gamma_curve
 from esrnerf_tpu_torch.optim import Adam, CosineLR
-from esrnerf_tpu_torch.parallel.mesh import ShardHelpers
+from esrnerf_tpu_torch.parallel.mesh import ParamLayout, ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import png
 from esrnerf_tpu_torch.utils.device import resolve_device
@@ -58,12 +61,13 @@ def lts_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
              w_nsm: float, white_bg: float, normal_eps: float,
              emit_eps: float, sh: ShardHelpers = ShardHelpers()):
     """The LTS loss, each term folded over the ranks by ``sh``. Returns
-    ``(loss, (mse, lin_mse, off_mse, emo_mse, overflow, k1_frac, k2_frac,
-    k1_frac_2nd, k2_frac_2nd))`` with the rank's march counters."""
+    ``(loss, (mse, lin_mse, off_mse, emo_mse, counts, counts_2nd,
+    counters))`` with the rank's counts of both marches and its own five
+    counters of them (:func:`lts_counters`)."""
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], batch["uncert_masks"], s_val, normal_eps,
-        emit_eps, draws=draws, generator=generator,
+        emit_eps, draws=draws, generator=generator, sh=sh,
     )
     wbg = res["etc/white_bg"] * white_bg
     srgb = torch.clamp(res["srgb/rgb"] + wbg, 0.0, 1.0)
@@ -98,17 +102,18 @@ def lts_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
     if tv_flag:
         tv = model.density_total_variation(params, smooth_grad_tv)
         loss = loss + tv_flag * (tv / sh.n if sh.n > 1 else tv)
-    return loss, (mse, lin_mse, off_l, emo_l, res["etc/overflow"],
-                  res["etc/k1_frac"], res["etc/k2_frac"],
-                  res["etc/k1_frac_2nd"], res["etc/k2_frac_2nd"])
+    return loss, (mse, lin_mse, off_l, emo_l, res["etc/counts"],
+                  res["etc/counts_2nd"], lts_own_counters(res))
 
 
 def build_lts_train_step(model, opt, cfg, device="cuda",
-                         sh: ShardHelpers = ShardHelpers()) -> Callable:
+                         sh: ShardHelpers = ShardHelpers(),
+                         layout: Optional[ParamLayout] = None) -> Callable:
     """The LTS train step, in the shape of
     :func:`~esrnerf_tpu_torch.apps.fine.build_fine_train_step` (``sh``: the
-    ranks' reductions; the caller sets ``model.lts_points_divisor`` to the
-    world).
+    ranks' reductions; under ``shard_map`` the caller sets
+    ``model.lts_points_divisor`` to the world; ``layout``: X-slab
+    parameters under ``fsdp``).
 
     Returns ``train_step(params, opt_state, batch, s_val, lr_scales,
     tv_flag, smooth_grad_tv, sdf_tv_w, tv_dense, draws=None,
@@ -139,31 +144,51 @@ def build_lts_train_step(model, opt, cfg, device="cuda",
     def train_step(params, opt_state, batch, s_val, lr_scales, tv_flag,
                    smooth_grad_tv, sdf_tv_w, tv_dense, draws=None,
                    generator=None):
-        aux, grads = loss_and_grads(
-            lambda p: lts_loss(model, p, batch, s_val, tv_flag,
-                               smooth_grad_tv, draws, generator, sh=sh, **kw),
-            params, "lts", sh)
-        if tv_flag:
-            with torch.no_grad(), record_function("lts/sdf_tv_grad"):
-                tv_g = model.sdf_tv_grad(
-                    params["sdf"], sdf_tv_w,
-                    sparse_grad=None if tv_dense else grads["sdf"])
-                grads["sdf"] = grads["sdf"] + tv_flag * tv_g
+        whole = {}
+
+        def loss_fn(p):
+            whole["sdf"] = p["sdf"].detach()  # gathered under fsdp
+            return lts_loss(model, p, batch, s_val, tv_flag, smooth_grad_tv,
+                            draws, generator, sh=sh, **kw)
+
+        aux, grads = loss_and_grads(loss_fn, params, "lts", sh, layout)
+        with torch.no_grad(), record_function("lts/sdf_tv_grad"):
+            add_sdf_tv_grad(model, whole.pop("sdf"), grads, tv_flag,
+                            sdf_tv_w, tv_dense, layout)
         with record_function("lts/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
-        return params, opt_state, counters_max(aux, 4, sh)
+        return params, opt_state, lts_counters(aux, 4, sh)
 
     return train_step
 
 
-def counters_max(aux, n_terms: int, sh: ShardHelpers) -> tuple:
-    """The step's aux detached: its first ``n_terms`` loss terms as they
-    are, the five march counters after them the maximum over the ranks,
-    anything after those as it is."""
-    aux = tuple(a.detach() for a in aux)
-    return (*aux[:n_terms], *(sh.gmax(c) for c in aux[n_terms:n_terms + 5]),
-            *aux[n_terms + 5:])
+def lts_own_counters(res) -> tuple:
+    """The LTS forward's five counters of its own two marches: overflow
+    (the larger of the two), k1_frac, k2_frac, k1_frac_2nd, k2_frac_2nd."""
+    return (res["etc/overflow"], res["etc/k1_frac"], res["etc/k2_frac"],
+            res["etc/k1_frac_2nd"], res["etc/k2_frac_2nd"])
+
+
+def _lts_fractions(both: torch.Tensor) -> tuple:
+    """The five counters of two marches' counts, concatenated."""
+    first, second = both.chunk(2)
+    o1, a1, b1 = march_fractions(first)
+    o2, a2, b2 = march_fractions(second)
+    return torch.maximum(o1, o2), a1, b1, a2, b2
+
+
+def lts_counters(aux, n_terms: int, sh: ShardHelpers) -> tuple:
+    """The step's aux detached: its first ``n_terms`` loss terms, then the
+    five counters (:func:`lts_own_counters`) of the two marches' counts
+    and the rank's own counters that follow them, folded over the ranks
+    by :func:`~esrnerf_tpu_torch.models.voxurf_base.fold_counters`, then
+    anything after them as it is."""
+    counts, counts_2nd, own = aux[n_terms:n_terms + 3]
+    counters = fold_counters((counts, counts_2nd), own, sh,
+                             derive=_lts_fractions)
+    return (*(a.detach() for a in aux[:n_terms]), *counters,
+            *(a.detach() for a in aux[n_terms + 3:]))
 
 
 class LTS(Fine):
@@ -249,18 +274,21 @@ class LTS(Fine):
     # ---------------------------------------------------------------- train
 
     def _train_step(self) -> Callable:
-        """The stage's train step (PDRA: its own loss). On a world of ranks
-        each selects its share of the surface points."""
+        """The stage's train step (PDRA: its own loss). On a
+        ``shard_map`` world each rank selects its share of the surface
+        points."""
         self.check_shardable(self.train_bs)
         self.renderer.lts_points_divisor = self.num_shards
         return build_lts_train_step(self.renderer, self.opt, self.cfg,
                                     device=self.device,
-                                    sh=self.shard_helpers())
+                                    sh=self.shard_helpers(),
+                                    layout=self.layout)
 
     def learn(self) -> None:
+        self.place_params()
         step_fn = self._train_step()
         # the forward's draws: a stream of its own for a run resumed at a
-        # step, and for each rank
+        # step, and (shard_map) for each rank
         gen = self.shard_helpers().fold_generator(
             self.device, self.cfg.system["seed"], self.global_step)
         ckpt_dir = self.ckpt_dir()
@@ -348,6 +376,7 @@ class LTS(Fine):
     def on_step_begin(self) -> None:
         """Hook for the PDRA stage's periodic ray-group updates."""
 
+    @gathers_params(state=True)
     def save(self, path: str) -> None:
         self.save_timed(path, {
             "renderer": {

@@ -26,22 +26,25 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from esrnerf_tpu_torch.apps.base import import_class, loss_and_grads
-from esrnerf_tpu_torch.apps.fine import composite_hdr
-from esrnerf_tpu_torch.apps.lts import LTS, counters_max, masked_mse
+from esrnerf_tpu_torch.apps.base import (gathers_params, import_class,
+                                         loss_and_grads)
+from esrnerf_tpu_torch.apps.fine import add_sdf_tv_grad, composite_hdr
+from esrnerf_tpu_torch.apps.lts import (LTS, lts_counters, lts_own_counters,
+                                        masked_mse)
 from esrnerf_tpu_torch.data.base import LightDict
 from esrnerf_tpu_torch.data.sampler import RayGroupManager
+from esrnerf_tpu_torch.models.voxurf_base import fold_counters
 from esrnerf_tpu_torch.ops.image import apply_gamma_curve
 from esrnerf_tpu_torch.optim import Adam
 from esrnerf_tpu_torch.optim.adam import tree_map
-from esrnerf_tpu_torch.parallel.mesh import (ShardHelpers, pad_to_multiple,
-                                            shard_rows)
+from esrnerf_tpu_torch.parallel.mesh import (ParamLayout, ShardHelpers,
+                                            pad_to_multiple, shard_rows)
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import IoU, loss2psnr, rgb_lpips, rgb_ssim
@@ -64,13 +67,13 @@ def pdra_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
               w_esupp: float, white_bg: float, normal_eps: float,
               emit_eps: float, sh: ShardHelpers = ShardHelpers()):
     """The PDRA loss, each term folded over the ranks by ``sh``. Returns
-    ``(loss, (mse, lin_mse, off_l1, emo_l1, overflow, k1_frac, k2_frac,
-    k1_frac_2nd, k2_frac_2nd, emo_r1, emit_supp, emit_smooth))``: the LTS
-    step's nine aux values, then the other PDRA terms."""
+    ``(loss, (mse, lin_mse, off_l1, emo_l1, counts, counts_2nd, counters,
+    emo_r1, emit_supp, emit_smooth))``: the LTS loss's aux, then the other
+    PDRA terms."""
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], batch["uncert_masks"], s_val, normal_eps,
-        emit_eps, draws=draws, generator=generator,
+        emit_eps, draws=draws, generator=generator, sh=sh,
     )
     wbg = res["etc/white_bg"] * white_bg
     srgb = torch.clamp(res["srgb/rgb"] + wbg, 0.0, 1.0)
@@ -116,20 +119,22 @@ def pdra_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
     if tv_flag:
         tv = model.density_total_variation(params, smooth_grad_tv)
         loss = loss + tv_flag * (tv / sh.n if sh.n > 1 else tv)
-    return loss, (mse, lin_mse, off_l, emo_l, res["etc/overflow"],
-                  res["etc/k1_frac"], res["etc/k2_frac"],
-                  res["etc/k1_frac_2nd"], res["etc/k2_frac_2nd"], emo_r,
+    return loss, (mse, lin_mse, off_l, emo_l, res["etc/counts"],
+                  res["etc/counts_2nd"], lts_own_counters(res), emo_r,
                   em_supp, esm)
 
 
 def build_pdra_train_step(model, opt, cfg, device="cuda",
-                          sh: ShardHelpers = ShardHelpers()) -> Callable:
-    """The PDRA train step (``sh``: the ranks' reductions), in the shape of
+                          sh: ShardHelpers = ShardHelpers(),
+                          layout: Optional[ParamLayout] = None) -> Callable:
+    """The PDRA train step (``sh``: the ranks' reductions; ``layout``:
+    X-slab parameters under ``fsdp``), in the shape of
     :func:`~esrnerf_tpu_torch.apps.lts.build_lts_train_step`: the same
-    arguments (``batch`` with ``uncert_masks``), the aux of
-    :func:`pdra_loss`, and the ranges ``pdra/{loss,backward,sdf_tv_grad,
-    adam}`` beside the forward's own ``lts/*``. The model must be in PDRA
-    mode (``model.pdra_mode``). TF32 is switched off."""
+    arguments (``batch`` with ``uncert_masks``), the LTS step's nine aux
+    values then :func:`pdra_loss`'s other terms, and the ranges
+    ``pdra/{loss,backward,sdf_tv_grad,adam}`` beside the forward's own
+    ``lts/*``. The model must be in PDRA mode (``model.pdra_mode``). TF32 is
+    switched off."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model lives on {model.device}, step asked for {dev}")
@@ -152,27 +157,28 @@ def build_pdra_train_step(model, opt, cfg, device="cuda",
     def train_step(params, opt_state, batch, s_val, lr_scales, tv_flag,
                    smooth_grad_tv, sdf_tv_w, tv_dense, draws=None,
                    generator=None):
-        aux, grads = loss_and_grads(
-            lambda p: pdra_loss(model, p, batch, s_val, tv_flag,
-                                smooth_grad_tv, draws, generator, sh=sh,
-                                **kw),
-            params, "pdra", sh)
-        if tv_flag:
-            with torch.no_grad(), record_function("pdra/sdf_tv_grad"):
-                tv_g = model.sdf_tv_grad(
-                    params["sdf"], sdf_tv_w,
-                    sparse_grad=None if tv_dense else grads["sdf"])
-                grads["sdf"] = grads["sdf"] + tv_flag * tv_g
+        whole = {}
+
+        def loss_fn(p):
+            whole["sdf"] = p["sdf"].detach()  # gathered under fsdp
+            return pdra_loss(model, p, batch, s_val, tv_flag, smooth_grad_tv,
+                             draws, generator, sh=sh, **kw)
+
+        aux, grads = loss_and_grads(loss_fn, params, "pdra", sh, layout)
+        with torch.no_grad(), record_function("pdra/sdf_tv_grad"):
+            add_sdf_tv_grad(model, whole.pop("sdf"), grads, tv_flag,
+                            sdf_tv_w, tv_dense, layout)
         with record_function("pdra/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
-        return params, opt_state, counters_max(aux, 4, sh)
+        return params, opt_state, lts_counters(aux, 4, sh)
 
     return train_step
 
 
 def build_finetune_step(model, opt, weight_lts: float,
-                        sh: ShardHelpers = ShardHelpers()) -> Callable:
+                        sh: ShardHelpers = ShardHelpers(),
+                        layout: Optional[ParamLayout] = None) -> Callable:
     """The relighting fine-tune step: ``ft_step(trainable, opt_state,
     frozen, batch, s_val, draws=None, generator=None, ft_pts=None,
     ft_valid=None) -> (trainable, opt_state, (loss, overflow))``.
@@ -180,8 +186,11 @@ def build_finetune_step(model, opt, weight_lts: float,
     rays, ``em_modes``, ``em_intensities`` and ``em_colors``. The loss is
     ``weight_lts`` x the masked MSE of the emo head against its edited
     target (numerator and count global over the ranks of ``sh``, the
-    overflow their maximum); Adam updates ``trainable`` in place. Ranges
-    ``relight/{loss,backward,adam}`` and the forward's own."""
+    secondary march's overflow folded by
+    :func:`~esrnerf_tpu_torch.models.voxurf_base.fold_counters`); Adam
+    updates ``trainable`` in place (its ``emo_color`` an X-slab with an
+    ``fsdp`` ``layout``). Ranges ``relight/{loss,backward,adam}`` and the
+    forward's own."""
 
     def ft_step(trainable, opt_state, frozen, batch, s_val, draws=None,
                 generator=None, ft_pts=None, ft_valid=None):
@@ -190,16 +199,18 @@ def build_finetune_step(model, opt, weight_lts: float,
                 p, frozen, batch["rays_o"], batch["rays_d"],
                 batch["viewdirs"], batch["em_modes"], batch["em_intensities"],
                 batch["em_colors"], s_val, draws=draws, generator=generator,
-                ft_pts=ft_pts, ft_valid=ft_valid)
+                ft_pts=ft_pts, ft_valid=ft_valid, sh=sh)
             loss = weight_lts * masked_mse(
                 res["lin/pbr/emo"], res["lin/pbr/emo_hat"],
                 res["lin/pbr/valid"], sh.gsum)
-            return loss, (loss, res["etc/overflow"])
+            return loss, (loss, res["etc/counts_2nd"], res["etc/overflow"])
 
-        (loss, ovf), grads = loss_and_grads(loss_fn, trainable, "relight", sh)
+        (loss, counts, overflow), grads = loss_and_grads(
+            loss_fn, trainable, "relight", sh, layout)
         with record_function("relight/adam"):
             trainable, opt_state = opt.step(trainable, grads, opt_state)
-        return trainable, opt_state, (loss.detach(), sh.gmax(ovf.detach()))
+        return trainable, opt_state, (
+            loss.detach(), fold_counters((counts,), (overflow,), sh)[0])
 
     return ft_step
 
@@ -326,6 +337,7 @@ class PDRA(LTS):
         return lambda ro, rd, vd: self.eval_chunk_retry(
             out, self.params, ro, rd, vd, s_val)
 
+    @gathers_params()
     def update_ray_groups(self, k_val: float) -> None:
         """Render the uncertain pool's emission again and move the rays
         whose largest channel is at most ``k_val`` to the certain pool.
@@ -370,8 +382,10 @@ class PDRA(LTS):
         self.renderer.lts_points_divisor = self.num_shards
         return build_pdra_train_step(self.renderer, self.opt, self.cfg,
                                      device=self.device,
-                                     sh=self.shard_helpers())
+                                     sh=self.shard_helpers(),
+                                     layout=self.layout)
 
+    @gathers_params(state=True)
     def save(self, path: str) -> None:
         self.save_timed(path, {
             "renderer": {
@@ -477,7 +491,7 @@ class PDRA(LTS):
         model = self.renderer
         pool_max = max(sampler.uncert_data_num, sampler.cert_data_num, 1)
         chunk = min(int(ev.get("cache_march_chunk", 4096)),
-                    pad_to_multiple(pool_max, self.num_shards))
+                    pad_to_multiple(pool_max, self.world.n))
 
         def slots(ro, rd, vd):
             p, ok, (cnt, drop) = model.geo.march_ray_slots(
@@ -545,18 +559,21 @@ class PDRA(LTS):
         t_cache = time.perf_counter()
 
         opt = Adam(self.eval_lrs)
-        opt_state = opt.init(trainable)
         # data-parallel when the edit batch divides over the ranks; else
         # every rank runs the whole batch alike
-        n = self.num_shards
+        n = self.world.n
         sh = (self.shard_helpers()
               if (self.eval_uncert_bs + self.eval_cert_bs) % n == 0
               else ShardHelpers())
-        self.renderer.lts_points_divisor = sh.n
+        # fsdp: the trainable emo grid and its moments as X-slabs
+        layout = ParamLayout(sh, fsdp=self.layout.fsdp)
+        trainable = layout.place(trainable)
+        opt_state = opt.init(trainable)
+        self.renderer.lts_points_divisor = 1 if sh.gspmd else sh.n
         step = build_finetune_step(self.renderer, opt, self.eval_weight_lts,
-                                   sh)
+                                   sh, layout)
         seed = int(self.cfg.system["seed"])
-        if sh.n > 1:  # ranks draw apart
+        if sh.n > 1 and not sh.gspmd:  # shard_map ranks draw apart
             seed = int(np.random.SeedSequence([seed, sh.rank])
                        .generate_state(1)[0])
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -573,7 +590,7 @@ class PDRA(LTS):
         losses = torch.stack(losses).cpu().tolist() if losses else []
         if ovfs:
             self.track_overflow(torch.stack(ovfs).max())
-        self.params = {**frozen, **trainable}
+        self.params = {**frozen, **layout.gather(trainable)}
         t_end = time.perf_counter()
         self.timings.update({
             "ft_filter_s": t_filter - t0, "ft_cache_s": t_cache - t_filter,

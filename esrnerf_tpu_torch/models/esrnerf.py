@@ -15,6 +15,16 @@ fixed-size selection with a validity mask. Randomness comes in as explicit
 tensors (:class:`LTSDraws`, :class:`FinetuneDraws`), so a test can feed
 the JAX package's draws.
 
+On a world of ranks under ``gspmd`` (a forward given the ranks' helpers
+``sh``), each rank marches its block of rays and the randomness is world
+1's: the draws are drawn at world 1's shapes and each rank takes the rows
+of its own head rows' places in world 1's cell-sorted order
+(:meth:`~esrnerf_tpu_torch.parallel.mesh.ShardHelpers.global_positions`),
+the surface points are world 1's lowest scores over all ranks
+(:meth:`~esrnerf_tpu_torch.parallel.mesh.ShardHelpers.select_lowest`), and
+each chosen point's scattering draw is its place among them. A rank's
+secondary march is sized for all ``num_ltspts`` points, as world 1's.
+
 The PDRA stage's pieces: the per-ray emission and expected surface point
 probes (:meth:`ESRNeRF.eval_emit`, :meth:`ESRNeRF.eval_esp`) and the
 relighting fine-tune's forward (:meth:`ESRNeRF.forward_finetune`).
@@ -30,7 +40,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from esrnerf_tpu_torch.models import mlp as mlpops
-from esrnerf_tpu_torch.models.voxurf_base import _linspace
+from esrnerf_tpu_torch.models.voxurf_base import _linspace, rebudget_counts
 from esrnerf_tpu_torch.models.voxurff import NORMAL_FLIPPER, VoxurfF
 from esrnerf_tpu_torch.ops import grid as gridops
 from esrnerf_tpu_torch.ops import pbr as pbrops
@@ -214,20 +224,23 @@ class ESRNeRF(VoxurfF):
     # ------------------------------------------------------- secondary march
 
     def _secondary_radiance(self, params: Params, rays_o, dirs, s_val,
-                            heads=("off", "emo")):
+                            heads=("off", "emo"), budget_rays=None):
         """Incoming radiance along secondary rays: a march from
-        ``lts_near`` with the secondary budgets, the radiance ``heads`` at
-        its points (one fused gather of their color grids) and the per-ray
-        sums. Returns ``({head: [Nsec, 3]}, alphainv_last [Nsec], stats)``
-        with ``stats = (overflow, k1_frac, k2_frac)`` of this march."""
+        ``lts_near`` with the secondary budgets (for ``budget_rays`` rays;
+        default, these), the radiance ``heads`` at its points (one fused
+        gather of their color grids) and the per-ray sums. Returns
+        ``({head: [Nsec, 3]}, alphainv_last [Nsec], sec)`` with ``sec``
+        this march's ``(counts, overflow, k1_frac, k2_frac)``
+        (:func:`~esrnerf_tpu_torch.models.voxurf_base.march_fractions`)."""
         geo = self.geo
         Nsec = rays_o.shape[0]
+        nb = Nsec if budget_rays is None else budget_rays
         with record_function("lts/march_2nd"):
             m = geo.march(
                 params["sdf"], rays_o, dirs, dirs, s_val, self.fastcolor_thres,
                 self.neus_alpha, style="fine",
-                k_budget=Nsec * self.points_per_2ndray,
-                k1_budget=Nsec * self.points_per_2ndray_masked,
+                k_budget=nb * self.points_per_2ndray,
+                k1_budget=nb * self.points_per_2ndray_masked,
                 near_override=self.lts_near,
             )
         rid = torch.clamp(m.ray_id, max=Nsec - 1)
@@ -239,17 +252,20 @@ class ESRNeRF(VoxurfF):
         for h, gv in zip(heads, gvs):
             out[h] = geo.segment_to_rays(m, self._radiance(params, h, feat,
                                                            gv))
-        stats = torch.stack([m.overflow, m.k1_frac, m.k2_frac])
-        return out, m.alphainv_last, stats
+        return out, m.alphainv_last, (m.counts, m.overflow, m.k1_frac,
+                                      m.k2_frac)
 
     def light_transport_segment(
         self, params: Params, scatter_draws, pts, viewdirs, normal, sdf,
         basecolor, roughness, metallic, emission, uncert, valid, s_val,
+        budget_pts: Optional[int] = None,
     ) -> Dict[str, torch.Tensor]:
         """Training-time LTS on the P selected surface points (``valid``
         masks slots with no real sample). Returns off/emo and their
         reconstructions, each ``[2P, 3]``: the actual view direction's
-        block, then the random view direction's."""
+        block, then the random view direction's; and the secondary march's
+        counts and fractions (``sec``, :meth:`_secondary_radiance`'s; its
+        budgets those of ``budget_pts`` points, default P)."""
         geo = self.geo
         n_valid_sel = valid.sum()
         P = pts.shape[0]
@@ -290,8 +306,9 @@ class ESRNeRF(VoxurfF):
         )  # [2 P n2, 3]
 
         # incoming radiance along the secondary rays
-        inc, alphainv_last, sec_stats = self._secondary_radiance(
-            params, flat(pts), sec_d, s_val)
+        inc, alphainv_last, sec = self._secondary_radiance(
+            params, flat(pts), sec_d, s_val,
+            budget_rays=None if budget_pts is None else budget_pts * n2)
         env = self.envmap_eval(params, sec_d) * alphainv_last[:, None]
 
         def mean_dirs(x2):  # [2 P n2, 3] -> [2P, 3]
@@ -308,7 +325,7 @@ class ESRNeRF(VoxurfF):
             emo_hat = emit2 + reflect
         return {"off": off, "emo": emo, "off_hat": off_hat,
                 "emo_hat": emo_hat, "valid": valid.repeat(2),
-                "sec_stats": sec_stats}
+                "sec": sec}
 
     @staticmethod
     def _select_lts_points(scores: torch.Tensor, march, P: int):
@@ -320,24 +337,69 @@ class ESRNeRF(VoxurfF):
         sel, _ = torch.sort(sel)
         return sel, ~march.pad.index_select(0, sel)
 
+    def _select_global(self, scores, pad, pos, sh):
+        """World 1's choice of the surface points, made over the ranks'
+        rows (``gspmd``): the ``n_lts_points`` lowest uniform ``scores``
+        (``pad`` rows score 2), ties to the lower world-1 position ``pos``.
+        Returns ``(rows, slots, valid, chosen)``: the rank's chosen rows
+        ascending in position (so its real rows come first), each one's
+        place among all the chosen rows (its scattering draw), which are
+        real, and whether any row was chosen. A rank none of whose rows is
+        chosen keeps one masked row, its last, so that its LTS runs on one
+        slot that no loss reads (and whose secondary samples
+        :meth:`_world_counts` leaves out)."""
+        scores = torch.where(pad, torch.full_like(scores, 2.0), scores)
+        rows, slots = sh.select_lowest(scores, pos, self.n_lts_points)
+        if rows.numel() == 0:
+            rows = torch.full((1,), pad.numel() - 1, dtype=torch.int64,
+                              device=pad.device)
+            slots = torch.zeros_like(rows)
+            return rows, slots, torch.zeros(1, dtype=torch.bool,
+                                            device=pad.device), False
+        return rows, slots, ~pad.index_select(0, rows), True
+
+    def _world_counts(self, counts, sh, chosen: bool = True):
+        """A secondary march's counts as a rank reports them: under
+        ``gspmd`` each rank marches its own points into a buffer sized for
+        world 1's, so the budgets in its counts are world 1's, a ``1 / n``
+        share each (their sum over the ranks is world 1's), and the global
+        fractions are world 1's; a rank with no ``chosen`` point (its one
+        masked slot) reports no samples."""
+        if sh is None or not sh.global_rows:
+            return counts
+        n_sec = self.n_lts_points * self.num_2ndrays
+        K1, K2, _ = self.geo.march_budgets(
+            n_sec, n_sec * self.points_per_2ndray,
+            n_sec * self.points_per_2ndray_masked)
+        return rebudget_counts(counts, K1 / sh.n, K2 / sh.n, chosen)
+
     # -------------------------------------------------------------- training
 
     def forward_training(
         self, params: Params, rays_o, rays_d, viewdirs, em_modes, uncert_masks,
         s_val, normal_eps, emit_eps, draws: Optional[LTSDraws] = None,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, sh=None,
     ) -> Dict[str, torch.Tensor]:
         """The LTS training forward. ``draws`` (or, if None, draws from
         ``generator``) supplies the randomness; the phases run inside the
-        ``lts/{march,features,heads,brdf,lts,march_2nd}`` ranges."""
+        ``lts/{march,features,heads,brdf,lts,march_2nd}`` ranges. With the
+        ranks' helpers ``sh`` under ``gspmd`` the draws are world 1's (the
+        module's docstring). ``etc/counts`` and ``etc/counts_2nd`` are both
+        marches' counts, which a data-parallel step folds over the ranks."""
         geo = self.geo
+        glob = sh is not None and sh.global_rows
         with record_function("lts/march"):
             m = geo.march(
                 params["sdf"], rays_o, rays_d, viewdirs, s_val,
                 self.fastcolor_thres, self.neus_alpha, style="fine",
             )
+        rows_w1 = m.pts.shape[0] * (sh.n if glob else 1)
         if draws is None:
-            draws = self.training_draws(generator, m.pts.shape[0])
+            draws = self.training_draws(generator, rows_w1)
+        if glob:  # the draws of this rank's rows, by their world-1 places
+            pos = sh.global_positions(m.key)
+            draws = LTSDraws(*(d if i == 1 else d.index_select(0, pos)
+                               for i, d in enumerate(draws)))
         rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
         with record_function("lts/features"):
             _, exp_grad = self.sample_sdf_expgrad(params["sdf"], m.pts)
@@ -367,15 +429,23 @@ class ESRNeRF(VoxurfF):
         normal = _unit_normal(exp_grad).detach()
 
         with record_function("lts/lts"):
-            sel, lts_valid = self._select_lts_points(draws.select, m,
-                                                     self.n_lts_points)
+            chosen = True
+            if glob:
+                sel, slots, lts_valid, chosen = self._select_global(
+                    draws.select, m.pad, pos, sh)
+                scatter = draws.scatter.index_select(0, slots)
+            else:
+                sel, lts_valid = self._select_lts_points(draws.select, m,
+                                                         self.n_lts_points)
+                scatter = draws.scatter
             rs = rid.index_select(0, sel)
             take = lambda x: x.index_select(0, sel)
             lts = self.light_transport_segment(
-                params, draws.scatter, take(m.pts),
+                params, scatter, take(m.pts),
                 viewdirs.index_select(0, rs), take(normal), take(m.sdf),
                 take(basecolor), take(roughness), take(metallic), take(emit),
                 uncert_masks.index_select(0, rs), lts_valid, s_val,
+                budget_pts=self.n_lts_points if glob else None,
             )
 
         with record_function("lts/brdf"):
@@ -389,7 +459,7 @@ class ESRNeRF(VoxurfF):
             basecolor_e, rough_e, metal_e, emit_e = self._brdf_heads(
                 params, pts_e, brdf_feat_e)
 
-        sec = lts["sec_stats"]
+        sec, sec_ovf, sec_k1, sec_k2 = lts["sec"]
         return {
             "etc/alphainv_cum": m.alphainv_last,
             "etc/white_bg": m.alphainv_last[..., None],
@@ -410,11 +480,13 @@ class ESRNeRF(VoxurfF):
             "etc/point_valid": ~m.pad,
             # the secondary march's overflow trips the same alarm as the
             # primary's; its utilisations stay separate
-            "etc/overflow": torch.maximum(m.overflow, sec[0]),
+            "etc/overflow": torch.maximum(m.overflow, sec_ovf),
             "etc/k1_frac": m.k1_frac,
             "etc/k2_frac": m.k2_frac,
-            "etc/k1_frac_2nd": sec[1],
-            "etc/k2_frac_2nd": sec[2],
+            "etc/k1_frac_2nd": sec_k1,
+            "etc/k2_frac_2nd": sec_k2,
+            "etc/counts": m.counts,
+            "etc/counts_2nd": self._world_counts(sec, sh, chosen),
         }
 
     # ------------------------------------------------------------ evaluation
@@ -514,7 +586,7 @@ class ESRNeRF(VoxurfF):
         R = pbrops.disney_reflection(
             flat(basecolor), flat(roughness, 1), flat(metallic, 1),
             flat(normal), dirs, -flat(viewdirs_pt))
-        inc, alphainv_last, sec_stats = self._secondary_radiance(
+        inc, alphainv_last, sec = self._secondary_radiance(
             params, flat(pts), dirs, s_val)
         env = self.envmap_eval(params, dirs) * alphainv_last[:, None]
 
@@ -528,7 +600,7 @@ class ESRNeRF(VoxurfF):
             "lin/env_indir": env_indir,
             "lin/env_effects": env_dir + env_indir,
             "lin/emit_(in)dir": mean_dirs(inc["emo"] * R),
-            "etc/overflow": sec_stats[0],
+            "etc/overflow": sec[1],
         }
 
 
@@ -565,7 +637,7 @@ class ESRNeRF(VoxurfF):
         em_modes, em_intensities, em_colors, s_val,
         draws: Optional[FinetuneDraws] = None,
         generator: Optional[torch.Generator] = None,
-        ft_pts=None, ft_valid=None,
+        ft_pts=None, ft_valid=None, sh=None,
     ) -> Dict[str, torch.Tensor]:
         """The relighting fine-tune's forward. ``params`` holds the
         trainable emo branch (``emo_color``, ``emo_rgbnet``), ``frozen``
@@ -578,11 +650,16 @@ class ESRNeRF(VoxurfF):
         (:meth:`VoxurfGeometry.march_ray_slots`); the surface points are
         then drawn from those slots and the step runs no primary march.
         ``draws`` (or, if None, draws from ``generator``) supplies the
-        randomness. The phases run inside the ranges
-        ``relight/{march,select,heads,target}``."""
+        randomness; with the ranks' helpers ``sh`` under ``gspmd`` it is
+        world 1's (the module's docstring); ``etc/counts_2nd`` are the
+        secondary march's counts. The phases run
+        inside the ranges ``relight/{march,select,heads,target}``."""
         geo = self.geo
         full = {**frozen, **params}
         n2 = self.num_2ndrays
+        glob = sh is not None and sh.global_rows
+        world = sh.n if glob else 1
+        chosen = True
 
         with record_function("relight/select"):
             if ft_pts is not None:
@@ -590,14 +667,23 @@ class ESRNeRF(VoxurfF):
                 flat_pts = ft_pts.reshape(B * ppr, 3)
                 flat_ok = ft_valid.reshape(B * ppr)
                 if draws is None:
-                    draws = self.finetune_draws(generator, B * ppr)
-                # the lowest scores among the filled slots, ties to the
-                # lower index (top_k's), ascending
-                scores = torch.where(flat_ok, draws.select,
-                                     torch.full_like(draws.select, 2.0))
-                sel = torch.argsort(scores, stable=True)[:self.n_lts_points]
-                sel, _ = torch.sort(sel)
-                valid = flat_ok.index_select(0, sel)
+                    draws = self.finetune_draws(generator, B * ppr * world)
+                if glob:  # the rank's block of world 1's slots
+                    pos = torch.arange(B * ppr, device=flat_ok.device) \
+                        + sh.rank * B * ppr
+                    sel, slots, valid, chosen = self._select_global(
+                        draws.select.index_select(0, pos), ~flat_ok, pos, sh)
+                    scatter = draws.scatter.index_select(0, slots)
+                else:
+                    # the lowest scores among the filled slots, ties to the
+                    # lower index (top_k's), ascending
+                    scores = torch.where(flat_ok, draws.select,
+                                         torch.full_like(draws.select, 2.0))
+                    sel = torch.argsort(scores,
+                                        stable=True)[:self.n_lts_points]
+                    sel, _ = torch.sort(sel)
+                    valid = flat_ok.index_select(0, sel)
+                    scatter = draws.scatter
                 pts = flat_pts.index_select(0, sel)
                 rid_sel = torch.div(sel, ppr, rounding_mode="floor")
             else:
@@ -606,10 +692,18 @@ class ESRNeRF(VoxurfF):
                                   s_val, self.fastcolor_thres,
                                   self.neus_alpha, style="fine")
                 if draws is None:
-                    draws = self.finetune_draws(generator, m.pts.shape[0])
+                    draws = self.finetune_draws(generator,
+                                                m.pts.shape[0] * world)
                 rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
-                sel, valid = self._select_lts_points(draws.select, m,
-                                                     self.n_lts_points)
+                if glob:
+                    pos = sh.global_positions(m.key)
+                    sel, slots, valid, chosen = self._select_global(
+                        draws.select.index_select(0, pos), m.pad, pos, sh)
+                    scatter = draws.scatter.index_select(0, slots)
+                else:
+                    sel, valid = self._select_lts_points(draws.select, m,
+                                                         self.n_lts_points)
+                    scatter = draws.scatter
                 pts = m.pts.index_select(0, sel)
                 rid_sel = rid.index_select(0, sel)
             P = pts.shape[0]
@@ -620,7 +714,7 @@ class ESRNeRF(VoxurfF):
 
             sdf, exp_grad = self.sample_sdf_expgrad(full["sdf"], pts)
             sdf, normal = sdf.detach(), _unit_normal(exp_grad).detach()
-            dirs_all = self.scattering(draws.scatter, normal, n2 + 1)
+            dirs_all = self.scattering(scatter, normal, n2 + 1)
             vd_rand = -dirs_all[:, -1]
             dirs = dirs_all[:, :-1]
 
@@ -659,8 +753,9 @@ class ESRNeRF(VoxurfF):
                 sec_d.repeat(2, 1),
                 torch.cat([-flat(vd), -flat(vd_rand)], 0),
             )
-            inc, _, sec_stats = self._secondary_radiance(
-                full, flat(pts), sec_d, s_val, heads=("emo",))
+            inc, _, (sec_counts, sec_ovf, _, _) = self._secondary_radiance(
+                full, flat(pts), sec_d, s_val, heads=("emo",),
+                budget_rays=self.n_lts_points * n2 if glob else None)
 
             # the light edits: off, intensity, colour (hue and saturation)
             off_m = (modes == 0)[:, None]
@@ -680,5 +775,6 @@ class ESRNeRF(VoxurfF):
             "lin/pbr/emo": emo,
             "lin/pbr/emo_hat": emo_hat,
             "lin/pbr/valid": valid.repeat(2),
-            "etc/overflow": sec_stats[0],
+            "etc/overflow": sec_ovf,
+            "etc/counts_2nd": self._world_counts(sec_counts, sh, chosen),
         }

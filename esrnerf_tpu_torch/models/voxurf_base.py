@@ -25,7 +25,7 @@ per-ray sample slots of the PDRA relighting fine-tune
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -208,6 +208,44 @@ class March(NamedTuple):
     n_valid: torch.Tensor    # [] int32 count of non-pad rows (a tail)
     k1_frac: torch.Tensor    # [] phase-1 budget utilization
     k2_frac: torch.Tensor    # [] phase-2 budget utilization
+    key: torch.Tensor        # [K] int64 cell key of each row, ascending
+    counts: torch.Tensor     # [6] f32 (n1, n2, K1, K2, dropped1, dropped2)
+
+
+def march_fractions(counts: torch.Tensor) -> tuple:
+    """``(overflow, k1_frac, k2_frac)`` of march counts ``(n1, n2, K1, K2,
+    dropped1, dropped2)``: the larger of the two phases' dropped shares of
+    their surviving samples, and each phase's use of its budget. Summed
+    counts give the fractions of the sum."""
+    n, k, d = counts.view(3, 2).unbind()
+    k1_frac, k2_frac = (n / k).unbind()
+    return (d / torch.clamp(n, min=1)).amax(), k1_frac, k2_frac
+
+
+def rebudget_counts(counts: torch.Tensor, K1: float, K2: float,
+                    keep: bool = True) -> torch.Tensor:
+    """March ``counts`` with the budgets ``K1``, ``K2`` in place of their
+    own and, unless ``keep``, no samples."""
+    k = 1.0 if keep else 0.0
+    return (counts * counts.new_tensor([k, k, 0.0, 0.0, k, k])
+            + counts.new_tensor([0.0, 0.0, K1, K2, 0.0, 0.0]))
+
+
+def fold_counters(counts: tuple, fractions: tuple, sh,
+                  derive: Callable = march_fractions) -> tuple:
+    """A step's march counters over the ranks of ``sh`` (a
+    :class:`~esrnerf_tpu_torch.parallel.mesh.ShardHelpers`):
+    ``fractions``, the forward's own counters of its ``counts`` (a tuple
+    of count vectors), as they are at world 1 and their maximum over the
+    ranks under ``shard_map``; under ``gspmd`` ``derive`` of every rank's
+    counts summed (default :func:`march_fractions` of one march's: the
+    global fractions, world 1's where no rank overflows). No launch at
+    world 1, one collective on a world of ranks."""
+    if sh.n == 1:
+        return tuple(f.detach() for f in fractions)
+    if sh.gspmd:
+        return derive(sh.reduce(torch.cat(counts)))
+    return tuple(sh.gmax(torch.stack(fractions).detach()).unbind())
 
 
 class VoxurfGeometry:
@@ -397,6 +435,22 @@ class VoxurfGeometry:
 
     # ------------------------------------------------------------ the march
 
+    def march_budgets(self, N: int, k_budget: int | None = None,
+                      k1_budget: int | None = None) -> tuple:
+        """``(K1, K2, BLK)`` of a march of ``N`` rays: the phase-1 and
+        head budgets (``k1_budget`` / ``k_budget``, default per ray) and
+        the phase-1 block. Phase 1 is block-granular: blocks of BLK samples
+        are tested once at their centre against the block-dilated mask,
+        surviving blocks are compacted whole, and the exact per-sample test
+        runs on the K1 list -- the survivor set equals the per-sample
+        path's. K1 is a whole number of blocks, at most every sample."""
+        S = self.n_samples
+        K2 = k_budget or (N * self.points_per_ray)
+        K1 = min(k1_budget or (N * self.points_per_ray_masked), N * S)
+        BLK = self.phase1_block if (self.surf_band_factor > 0
+                                    or self._mask_sup_blk is not None) else 1
+        return min(-(-K1 // BLK) * BLK, N * -(-S // BLK) * BLK), K2, BLK
+
     def march(
         self,
         sdf_grid_smooth: torch.Tensor,
@@ -440,19 +494,10 @@ class VoxurfGeometry:
         dev = rays_o.device
         N = rays_o.shape[0]
         S = self.n_samples
-        K2 = k_budget or (N * self.points_per_ray)
-        K1 = min(k1_budget or (N * self.points_per_ray_masked), N * S)
         band = self.surf_band_factor > 0
-
-        # block-granular phase 1: blocks of BLK samples are tested once at
-        # their centre against the block-dilated mask, surviving blocks are
-        # compacted whole, and the exact per-sample test runs on the K1
-        # list -- the survivor set equals the per-sample path's
-        BLK = self.phase1_block if (band or self._mask_sup_blk is not None) \
-            else 1
+        K1, K2, BLK = self.march_budgets(N, k_budget, k1_budget)
         SB = -(-S // BLK)
         Sp = SB * BLK  # dense-bridge row stride
-        K1 = min(-(-K1 // BLK) * BLK, N * Sp)
 
         mn, mx = self.xyz_min_t, self.xyz_max_t
         near_v = self.near if near_override is None else near_override
@@ -607,7 +652,7 @@ class VoxurfGeometry:
         i0 = torch.floor(ind).to(torch.int64)
         cell = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
         key = torch.where(pad, torch.full_like(cell, _PAD_KEY), cell)
-        perm = torch.argsort(key, stable=True)
+        key, perm = torch.sort(key, stable=True)
         inv_perm = torch.empty_like(perm).scatter_(
             0, perm, torch.arange(perm.numel(), device=dev))
         pack2 = splatops.permute_rows(pack2, perm, inv_perm)
@@ -629,16 +674,17 @@ class VoxurfGeometry:
 
         cum_weights = torch.zeros(N + 1, dtype=w_c.dtype, device=dev) \
             .index_add(0, ray_c, w_c)[:N]
-        n1f, n2f = n1.to(torch.float32), n2.to(torch.float32)
-        overflow = torch.maximum(
-            torch.clamp(n1f - K1, min=0) / torch.clamp(n1f, min=1),
-            torch.clamp(n2f - K2, min=0) / torch.clamp(n2f, min=1),
-        )
+        n12 = torch.stack([n1, n2]).to(torch.float32)
+        k12 = torch.full_like(n12, K1)
+        k12[1] = K2
+        counts = torch.cat([n12, k12, torch.clamp(n12 - k12, min=0)])
+        overflow, k1_frac, k2_frac = march_fractions(counts)
         return March(
             pts=pts_c, ray_id=ray_c, step_id=step_c, weights=w_c, alpha=a_c,
             sdf=sdf_c, pad=pad, alphainv_last=alphainv_last,
             cum_weights=cum_weights, n_rays=N, overflow=overflow,
-            n_valid=nv2, k1_frac=n1f / K1, k2_frac=n2f / K2,
+            n_valid=nv2, k1_frac=k1_frac, k2_frac=k2_frac, key=key,
+            counts=counts,
         )
 
     @torch.no_grad()

@@ -141,6 +141,9 @@ class VoxurfC:
 
     def forward_training(self, params: Params, rays_o, rays_d, viewdirs,
                          em_modes, s_val) -> Dict[str, torch.Tensor]:
+        """The coarse training forward; ``etc/counts`` are the march's counts
+        (:func:`~esrnerf_tpu_torch.models.voxurf_base.march_fractions`),
+        which a data-parallel step folds over the ranks."""
         m, rid, _, feat = self._march_features(params, rays_o, rays_d,
                                                viewdirs, s_val)
         on_mask = (em_modes.index_select(0, rid) == 1) & ~m.pad
@@ -154,6 +157,7 @@ class VoxurfC:
             "etc/overflow": m.overflow,
             "etc/k1_frac": m.k1_frac,
             "etc/k2_frac": m.k2_frac,
+            "etc/counts": m.counts,
         }
 
     @torch.no_grad()

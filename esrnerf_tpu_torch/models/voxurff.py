@@ -196,6 +196,9 @@ class VoxurfF:
 
     def forward_training(self, params: Params, rays_o, rays_d, viewdirs,
                          em_modes, s_val) -> Dict[str, torch.Tensor]:
+        """The fine training forward; ``etc/counts`` are the march's counts
+        (:func:`~esrnerf_tpu_torch.models.voxurf_base.march_fractions`),
+        which a data-parallel step folds over the ranks."""
         geo = self.geo
         with record_function("fine/march"):
             m = geo.march(
@@ -228,6 +231,7 @@ class VoxurfF:
             "etc/overflow": m.overflow,
             "etc/k1_frac": m.k1_frac,
             "etc/k2_frac": m.k2_frac,
+            "etc/counts": m.counts,
         }
 
     @torch.no_grad()
@@ -301,11 +305,14 @@ class VoxurfF:
         return (torch.where(mask, err, torch.zeros_like(err)).sum() / denom
                 ) * smooth_grad_tv
 
-    def sdf_tv_grad(self, sdf: torch.Tensor, weight, sparse_grad=None):
+    def sdf_tv_grad(self, sdf: torch.Tensor, weight, sparse_grad=None,
+                    x_rows=None):
         """Gradient term of the SDF TV: per-axis weight scaled by
-        max(world) / 128."""
+        max(world) / 128 (of the X-rows ``x_rows`` only, as
+        :func:`~esrnerf_tpu_torch.ops.tv.tv_grad`'s)."""
         w = weight * max(self.geo.world_size) / 128.0
-        return tvops.tv_grad(sdf, w, w, w, sparse_grad=sparse_grad)
+        return tvops.tv_grad(sdf, w, w, w, sparse_grad=sparse_grad,
+                             x_rows=x_rows)
 
     def extract_geometry(self, params: Params, **kw):
         return self.geo.extract_geometry(params["sdf"], **kw)

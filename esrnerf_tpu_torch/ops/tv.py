@@ -51,19 +51,28 @@ def tv_grad(
     wz: float,
     sparse_grad: torch.Tensor | None = None,
     nonempty_mask: torch.Tensor | None = None,
+    x_rows: tuple | None = None,
 ) -> torch.Tensor:
     """Per voxel ``w/6 * sum_axes(clamp(v - neighbour, -1, 1))`` over the up
     to 6 neighbours, per-axis weights ``wx, wy, wz``.
 
     ``sparse_grad``: voxels whose existing gradient is exactly 0 get no TV
     gradient. ``nonempty_mask``: a voxel pair's diff counts only if both
-    voxels are nonempty. Returns the TV gradient (add it to the gradient).
+    voxels are nonempty. ``x_rows``: ``(lo, hi)``, the gradient of the
+    X-rows ``grid[lo:hi]`` only (their neighbours read from the rows
+    around them; ``sparse_grad`` of that shape). Returns the TV gradient
+    (add it to the gradient).
     """
     m = None
     if nonempty_mask is not None:
         m = nonempty_mask.to(grid.dtype)
         if m.ndim == 3:
             m = m[..., None]
+    if x_rows is not None:
+        lo, hi = x_rows
+        a, b = max(lo - 1, 0), min(hi + 1, grid.shape[0])
+        grid = grid[a:b]
+        m = None if m is None else m[a:b]
 
     def axis_terms(axis, w):
         n = grid.shape[axis]
@@ -76,6 +85,8 @@ def tv_grad(
         return (w / 6.0) * (_pad_axis(d, axis, 1, 0) - _pad_axis(d, axis, 0, 1))
 
     g = axis_terms(0, wx) + axis_terms(1, wy) + axis_terms(2, wz)
+    if x_rows is not None:
+        g = g[lo - a:hi - a]
     if sparse_grad is not None:
         g = torch.where(sparse_grad == 0, torch.zeros_like(g), g)
     return g

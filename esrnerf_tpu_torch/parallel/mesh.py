@@ -1,25 +1,47 @@
 """Data parallelism over ranks with ``torch.distributed``.
 
-Port of ``esrnerf_tpu/parallel/mesh.py``'s ``shard_map`` path: one process
-per rank (``torchrun``), each marching its own contiguous block of the
-global ray batch with the renderer's local budgets. Parameters and
-optimizer state are replicated; every loss term folds its numerator and
-count across ranks ("recipe B", :class:`ShardHelpers`), the gradients are
-all-reduced once, and each rank runs the identical Adam step.
+Port of ``esrnerf_tpu/parallel/mesh.py``: one process per rank
+(``torchrun``), each marching its own contiguous block of the global ray
+batch with the renderer's per-rank budgets. Every loss term folds its
+numerator and count across ranks ("recipe B", :class:`ShardHelpers`), the
+gradients are summed over the ranks once, and each rank runs the identical
+Adam step.
 
     torchrun --standalone --nproc_per_node=N -m esrnerf_tpu_torch.run \\
-        -cn <cfg> app.phase=train
+        -cn <cfg> app.phase=train [system.parallel=gspmd] \\
+        [system.param_shard=fsdp]
+
+Two step layouts (``system.parallel``):
+
+- ``shard_map`` (the default): each rank's step is the one-device step on
+  its block. Random draws are the rank's own (:meth:`ShardHelpers.
+  fold_generator`), the LTS surface points are split between the ranks
+  (``num_ltspts / n`` a rank) and the march counters are the maximum of
+  the ranks' own fractions. The result depends on the world size.
+- ``gspmd``: the step at world n equals the step at world 1 on the same
+  global batch and generator, up to summation order, as JAX's ``jit`` of
+  the one-device step body does. The draws are world 1's, each rank
+  taking its rows by their place in world 1's order
+  (:meth:`ShardHelpers.global_positions`); the LTS surface points are
+  world 1's lowest scores over all ranks (:meth:`ShardHelpers.
+  select_lowest`); the counters are global fractions. The march budgets
+  stay per rank at the block's share, so a rank whose block overflows its
+  share reports overflow where one buffer for the whole batch might not.
+
+Parameters (``system.param_shard``, under ``gspmd``): replicated, or
+``fsdp`` (:class:`ParamLayout`): every leaf of three or more dims whose
+leading dim divides the world is kept as the rank's contiguous X-slab, as
+are its Adam moments; a step all-gathers the slabs into the whole grid and
+its backward reduce-scatters the grid's gradient, so each rank gets the
+global gradient of its own slab. ``shard_map`` keeps the parameters
+replicated and ignores the flag, as the JAX package does.
 
 Backends: NCCL when every rank has a card of its own (``WORLD_SIZE`` <=
 ``torch.cuda.device_count()``); gloo when ranks share a card
 (``cuda:LOCAL_RANK % count``) or run on the CPU (``system.device=cpu``).
 gloo reduces in host memory, so the helpers stage CUDA tensors through
-pinned host buffers for it. At world 1 nothing here runs: the helpers are
-the identity and no process group exists.
-
-The JAX package's other layouts, ``system.parallel=gspmd`` and
-``system.param_shard=fsdp`` (grids and Adam moments sharded over ranks),
-are not ported: both raise here (ROADMAP item 18).
+host buffers for it. At world 1 nothing here runs: the helpers are the
+identity and no process group exists.
 """
 
 from __future__ import annotations
@@ -32,6 +54,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 # seconds a collective may wait for the other ranks before it raises
 TIMEOUT_S = 900
@@ -58,24 +81,32 @@ def pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def check_parallel_cfg(cfg, n: int) -> None:
-    """Refuse the layouts the port has no path for, at a world of ``n``."""
-    if n <= 1:
-        return
+PARALLEL_MODES = ("shard_map", "gspmd")
+PARAM_SHARDS = ("none", "fsdp")
+
+
+def parallel_layout(cfg) -> tuple:
+    """``(system.parallel, system.param_shard)`` with their defaults
+    (``shard_map``, ``none``)."""
     sysc = cfg.system
-    if not tuple(sysc.get("mesh_axes") or ()):
+    return (str(sysc.get("parallel") or "shard_map"),
+            str(sysc.get("param_shard") or "none"))
+
+
+def check_parallel_cfg(cfg, n: int) -> None:
+    """Refuse a layout the port has no path for, at a world of ``n``: an
+    unknown ``system.parallel`` or ``system.param_shard``, or empty
+    ``system.mesh_axes`` on more than one rank."""
+    mode, shard = parallel_layout(cfg)
+    if mode not in PARALLEL_MODES:
+        raise ValueError(f"system.parallel={mode}: one of {PARALLEL_MODES}")
+    if shard not in PARAM_SHARDS:
+        raise ValueError(
+            f"system.param_shard={shard}: one of {PARAM_SHARDS}")
+    if n > 1 and not tuple(cfg.system.get("mesh_axes") or ()):
         raise ValueError(
             f"a world of {n} ranks with system.mesh_axes empty: the data "
             "axis is what the ranks split; set system.mesh_axes=[data]")
-    mode = str(sysc.get("parallel") or "shard_map")
-    if mode != "shard_map":
-        raise ValueError(
-            f"system.parallel={mode} is not ported to torch.distributed "
-            "(ROADMAP item 18); the port's data-parallel path is shard_map")
-    if str(sysc.get("param_shard") or "none") == "fsdp":
-        raise ValueError(
-            "system.param_shard=fsdp (sharded grids and Adam moments) is not "
-            "ported to torch.distributed (ROADMAP item 18)")
 
 
 def _device(cfg, local_rank: int, n: int) -> torch.device:
@@ -163,14 +194,23 @@ class ShardHelpers:
 
     ``group``: the process group (None: the default one); ``backend`` of
     that group. With gloo, CUDA tensors are staged through pinned host
-    memory (one reusable buffer per dtype for the gradients)."""
+    memory (one reusable buffer per dtype for the gradients). ``gspmd``:
+    the step layout whose result does not depend on the world size (world
+    1's draws, point selection and counters; the module's docstring)."""
 
     def __init__(self, n: int = 1, rank: int = 0, group=None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, gspmd: bool = False):
         self.n, self.rank, self.group = n, rank, group
+        self.gspmd = bool(gspmd)
         self.backend = backend or (dist.get_backend(group) if n > 1
                                    else None)
         self._host: Dict[torch.dtype, torch.Tensor] = {}
+
+    @property
+    def global_rows(self) -> bool:
+        """True where a step must place its rows in world 1's order
+        (``gspmd`` on more than one rank)."""
+        return self.gspmd and self.n > 1
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
@@ -220,22 +260,30 @@ class ShardHelpers:
 
     def fold_generator(self, device, seed: int, step: int) -> torch.Generator:
         """The rank's generator of a run from ``step`` on: seeded from
-        ``(seed, step)`` at world 1, ``(seed, step, rank)`` on a larger
+        ``(seed, step)`` at world 1 and under ``gspmd`` (every rank draws
+        world 1's tensors), ``(seed, step, rank)`` on a larger ``shard_map``
         world, so ranks draw apart."""
-        key = [int(seed), int(step)] + ([self.rank] if self.n > 1 else [])
+        key = [int(seed), int(step)] + (
+            [self.rank] if self.n > 1 and not self.gspmd else [])
         s = int(np.random.SeedSequence(key).generate_state(1)[0])
         return torch.Generator(device=device).manual_seed(s)
 
     def all_reduce_grads(self, tree):
-        """Sum a gradient tree over the ranks in place with one collective
-        per dtype over one flat buffer (not one per leaf: the fine step's
-        gradients are 872 MB at 256^3). Returns ``tree``."""
+        """Sum a gradient tree over the ranks in place, through one flat
+        buffer per dtype (the fine step's gradients are 872 MB at 256^3):
+        one collective over the leaves of fewer than three dims together,
+        then one over each grid (a leaf of three or more dims), so a grid
+        is summed in the order that ``fsdp``'s reduce-scatter of it sums
+        (:meth:`reduce_scatter_flat`; the same bits on gloo). Returns
+        ``tree``."""
         if self.n == 1:
             return tree
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for _, g in _leaves(tree):
             by_dtype.setdefault(g.dtype, []).append(g)
         for dtype, leaves in by_dtype.items():
+            leaves = ([g for g in leaves if g.dim() < 3]
+                      + [g for g in leaves if g.dim() >= 3])
             total = sum(g.numel() for g in leaves)
             staged = self._staged(leaves[0])
             if staged:
@@ -247,14 +295,20 @@ class ShardHelpers:
             else:
                 flat = torch.empty(total, dtype=dtype,
                                    device=leaves[0].device)
-            o = 0
-            for g in leaves:
+            # segment ends: the small leaves' together, then each grid's
+            ends, o = [], 0
+            for i, g in enumerate(leaves):
                 flat[o:o + g.numel()].copy_(g.reshape(-1),
                                             non_blocking=staged)
                 o += g.numel()
+                if g.dim() >= 3 or i + 1 == len(leaves) \
+                        or leaves[i + 1].dim() >= 3:
+                    ends.append(o)
             if staged:
                 torch.cuda.current_stream(leaves[0].device).synchronize()
-            dist.all_reduce(flat, group=self.group)
+            for a, b in zip([0] + ends[:-1], ends):
+                if b > a:
+                    dist.all_reduce(flat[a:b], group=self.group)
             o = 0
             for g in leaves:
                 g.copy_(flat[o:o + g.numel()].view_as(g), non_blocking=staged)
@@ -262,18 +316,203 @@ class ShardHelpers:
         return tree
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's block of rows, in rank order (equal-sized blocks),
-        on every rank."""
+        """Every rank's block of rows (equal-sized blocks) stacked in rank
+        order, on every rank: one ``all_gather_into_tensor``, no gradient;
+        ``x`` at world 1."""
         if self.n == 1:
             return x
-        src = x.detach().cpu() if self._staged(x) else x.detach().contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.n)]
-        dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts, 0).to(x.device)
+        src = x.detach().contiguous()
+        staged = self._staged(src)
+        if staged:
+            src = _pinned_copy(src)
+        out = torch.empty((self.n * src.shape[0], *src.shape[1:]),
+                          dtype=src.dtype, device=src.device,
+                          pin_memory=staged)
+        dist.all_gather_into_tensor(out, src, group=self.group)
+        return out.to(x.device, non_blocking=True) if staged else out
+
+    def reduce_scatter_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of ``x``'s rank-th block of rows (dim 0
+        divides the world), one ``reduce_scatter_tensor``; no gradient."""
+        if self.n == 1:
+            return x.detach()
+        src = x.detach().contiguous()
+        staged = self._staged(src)
+        if staged:
+            src = _pinned_copy(src)
+        out = torch.empty((src.shape[0] // self.n, *src.shape[1:]),
+                          dtype=src.dtype, device=src.device,
+                          pin_memory=staged)
+        dist.reduce_scatter_tensor(out, src, dist.ReduceOp.SUM,
+                                   group=self.group)
+        return out.to(x.device, non_blocking=True) if staged else out
+
+    def global_positions(self, keys: torch.Tensor) -> torch.Tensor:
+        """Each of the rank's rows' place in world 1's order. ``keys``
+        (int64, ascending, the same count on every rank) are the rank's
+        rows sorted stably by key over ray-major rows; world 1 sorts the
+        union the same way, and the ranks hold ascending ray blocks, so a
+        row with key ``c`` sits after every row of a smaller key, after the
+        rows of key ``c`` on lower ranks, and at its own offset among the
+        rank's rows of key ``c``. One all-gather of the keys."""
+        local = torch.arange(keys.numel(), device=keys.device)
+        if self.n == 1:
+            return local
+        allk = self.gather_rows(keys).reshape(self.n, -1)
+        below = torch.searchsorted(torch.sort(allk.reshape(-1)).values, keys)
+        pos = below + local - torch.searchsorted(keys, keys)
+        if self.rank:
+            lower = allk[:self.rank].contiguous()
+            k = keys.expand(self.rank, -1).contiguous()
+            pos = pos + (torch.searchsorted(lower, k, right=True)
+                         - torch.searchsorted(lower, k)).sum(0)
+        return pos
+
+    def select_lowest(self, scores: torch.Tensor, pos: torch.Tensor,
+                      P: int) -> tuple:
+        """World 1's choice of the ``P`` lowest ``scores`` over every
+        rank's rows, ties to the lower position ``pos`` (a stable argsort
+        of the scores over rows in position order), from one all-gather of
+        each rank's own ``P`` lowest (score, position) pairs. Returns
+        ``(rows, slots)``: this rank's chosen rows (indices into
+        ``scores``) ascending in position, and each one's place among all
+        ``P`` chosen rows in ascending position."""
+        order = torch.argsort(pos)
+        order = order.index_select(
+            0, torch.argsort(scores.index_select(0, order), stable=True))
+        cand = order[:P]
+        pairs = torch.stack([scores.index_select(0, cand).double(),
+                             pos.index_select(0, cand).double()], -1)
+        if cand.numel() < P:  # fewer rows than P: never-chosen fillers
+            fill = pairs.new_tensor([float("inf"), float("inf")])
+            pairs = torch.cat([pairs, fill.expand(P - cand.numel(), 2)])
+        allp = self.gather_rows(pairs)
+        o = torch.argsort(allp[:, 1])
+        o = o.index_select(0, torch.argsort(allp[o, 0], stable=True))[:P]
+        chosen = torch.sort(allp[o, 1]).values
+        chosen = chosen[torch.isfinite(chosen)]
+        mine = pairs[:cand.numel(), 1].contiguous()
+        slot = torch.searchsorted(chosen, mine)
+        hit = chosen.index_select(
+            0, torch.clamp(slot, max=max(chosen.numel() - 1, 0))) == mine
+        rows, slots = cand[hit], slot[hit]
+        o = torch.argsort(slots)
+        return rows.index_select(0, o), slots.index_select(0, o)
 
     def barrier(self) -> None:
         if self.n > 1:
             dist.barrier(group=self.group)
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A CUDA tensor in pinned host memory (the caching host allocator
+    reuses the buffer), the copy finished before gloo reads it."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return h
+
+
+def fsdp_shards(x: torch.Tensor, n: int) -> bool:
+    """The JAX package's ``fsdp_param_sharding`` rule: a leaf of three or
+    more dims whose leading dim divides a world of ``n`` > 1 ranks is
+    split into X-slabs; everything else stays replicated."""
+    return n > 1 and x.dim() >= 3 and x.shape[0] % n == 0
+
+
+class ParamLayout:
+    """How a rank keeps a stage's parameter tree: whole (replicated), or,
+    with ``fsdp`` on a world of ranks, every leaf that :func:`fsdp_shards`
+    as its contiguous X-slab ``[r X / n : (r + 1) X / n]``. :meth:`place`
+    records the sharded leaves by path; the same paths then pick the slabs
+    of any tree of that structure (Adam's moments, the gradients, the
+    per-voxel LR). :meth:`gather` puts the whole grids back together (no
+    gradient); :meth:`gather_for_grad` does it inside a step, its backward
+    reduce-scattering the grids' gradients (:class:`_GatherSlabs`).
+    Without ``fsdp``, or at world 1, every method hands its input back."""
+
+    def __init__(self, sh: ShardHelpers, fsdp: bool = False):
+        self.sh = sh
+        self.fsdp = bool(fsdp) and sh.n > 1
+        self.paths: frozenset = frozenset()
+
+    def sharded(self, path) -> bool:
+        return (path if isinstance(path, tuple) else (path,)) in self.paths
+
+    def place(self, tree):
+        """A whole tree as the rank keeps it; records which leaves shard
+        (by the rule on their shapes: a rescaled grid is placed anew)."""
+        if self.fsdp:
+            self.paths = frozenset(p for p, x in _leaves(tree)
+                                   if fsdp_shards(x, self.sh.n))
+        return self.slice(tree)
+
+    def rows(self, x: torch.Tensor) -> tuple:
+        """``(lo, hi)``: the X-rows of a whole grid that are the rank's
+        slab."""
+        b = x.shape[0] // self.sh.n
+        return self.sh.rank * b, (self.sh.rank + 1) * b
+
+    def slab(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's X-slab of a whole grid (a copy of its own)."""
+        lo, hi = self.rows(x)
+        return x.detach()[lo:hi].clone()
+
+    def slice(self, tree):
+        """A whole tree of the placed tree's structure cut to the rank's
+        slabs at the recorded paths."""
+        return _map_leaves(tree, lambda p, x: self.slab(x)
+                           if p in self.paths else x)
+
+    def gather(self, tree):
+        """The whole tree from the rank's slabs (one all-gather a sharded
+        leaf, in path order on every rank)."""
+        return _map_leaves(tree, lambda p, x: self.sh.gather_rows(x)
+                           if p in self.paths else x)
+
+    def place_state(self, state):
+        """An optimizer state (``step``, ``mu``, ``nu``) of whole leaves
+        cut to the rank's slabs."""
+        if not self.paths:
+            return state
+        return type(state)(state.step, self.slice(state.mu),
+                           self.slice(state.nu))
+
+    def gather_state(self, state):
+        if not self.paths:
+            return state
+        return type(state)(state.step, self.gather(state.mu),
+                           self.gather(state.nu))
+
+    def gather_for_grad(self, slabs: List[torch.Tensor]) -> tuple:
+        """The whole grids of ``slabs`` (leaves requiring grad) inside a
+        step: one autograd node, so its backward, the reduce-scatter of
+        every grid's gradient, runs once and in the same order on every
+        rank."""
+        return _GatherSlabs.apply(self.sh, *slabs)
+
+
+def _map_leaves(tree, fn, prefix=()):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, prefix + (k,)) for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+class _GatherSlabs(torch.autograd.Function):
+    """All-gather of X-slabs into whole grids; the backward is their
+    gradients' reduce-scatter (SUM), so under recipe B each rank gets the
+    global gradient of its own slab."""
+
+    @staticmethod
+    def forward(ctx, sh, *slabs):
+        ctx.sh = sh
+        with record_function("fsdp/all_gather"):
+            return tuple(sh.gather_rows(s) for s in slabs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with record_function("fsdp/reduce_scatter"):
+            return (None, *(ctx.sh.reduce_scatter_flat(g) for g in grads))
 
 
 def _leaves(tree, prefix=()):

@@ -32,12 +32,15 @@ Data-parallel over N ranks (one process each; NCCL with a card a rank,
 gloo where ranks share a card or run on the CPU):
 
     torchrun --standalone --nproc_per_node=N -m esrnerf_tpu_torch.run \
-        -cn cfg/exp/esrnerf/giftbox_w/fine.yaml app.phase=train
+        -cn cfg/exp/esrnerf/giftbox_w/fine.yaml app.phase=train \
+        [system.parallel=gspmd [system.param_shard=fsdp]]
 
 Every rank composes the config, then takes rank 0's (its ``log.name``
 reads the clock), seeds alike and draws the same global batches; each
-trains on its block of them (:mod:`esrnerf_tpu_torch.parallel.mesh`).
-Rank 0 alone writes the log dir.
+trains on its block of them (:mod:`esrnerf_tpu_torch.parallel.mesh`:
+``shard_map`` by default, ``gspmd`` for world 1's step at any world,
+``fsdp`` for grids and Adam moments kept as X-slabs). Rank 0 alone writes
+the log dir.
 """
 
 from __future__ import annotations

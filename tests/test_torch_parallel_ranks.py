@@ -5,8 +5,9 @@ gloo ranks import this module (by name) and run its tasks.
 joining one gloo process group through a ``file://`` rendezvous in a
 temporary directory (no port, so test workers running side by side cannot
 collide) with a collective timeout, and serves tasks: every rank runs the
-same module-level function with its :class:`ShardHelpers`, and the pool
-returns the results by rank. The same functions run in the test process
+same module-level function (of this module or another test module, found
+by name) with its :class:`ShardHelpers`, and the pool returns the results
+by rank. The same functions run in the test process
 with the world-1 helpers, for the one-device result.
 
 The tests here (one world of 4 ranks for the module, one of 2 for the
@@ -27,6 +28,7 @@ f32; ``tests/test_torch_parallel.py`` holds it to the JAX package's
 """
 
 import datetime
+import importlib
 import json
 import multiprocessing as mp
 import os
@@ -54,8 +56,8 @@ pytestmark = pytest.mark.quick
 
 class RankPool:
     """``n`` spawned gloo ranks serving tasks (module-level functions of
-    this module taking ``sh=``); collectives time out after ``timeout_s``,
-    so ranks that disagree fail instead of hanging."""
+    a test module taking ``sh=``); collectives time out after
+    ``timeout_s``, so ranks that disagree fail instead of hanging."""
 
     def __init__(self, n: int, tmpdir: str, timeout_s: float = 120.0):
         ctx = mp.get_context("spawn")
@@ -70,12 +72,12 @@ class RankPool:
         for p in self.procs:
             p.start()
 
-    def run(self, fn, *args, wait_s: float = 600.0):
-        """``fn(*args, sh=<rank's helpers>)`` on every rank; the results in
-        rank order. A rank's exception is raised here with its
+    def run(self, fn, *args, wait_s: float = 600.0, **kwargs):
+        """``fn(*args, **kwargs, sh=<rank's helpers>)`` on every rank; the
+        results in rank order. A rank's exception is raised here with its
         traceback."""
         for q in self.inqs:
-            q.put((fn.__name__, args))
+            q.put((fn.__module__, fn.__name__, args, kwargs))
         got = {}
         deadline = time.monotonic() + wait_s
         while len(got) < self.n:
@@ -114,9 +116,10 @@ def _serve(rank, n, init, timeout_s, inq, outq):
             task = inq.get()
             if task is None:
                 break
-            name, args = task
+            module, name, args, kwargs = task
             try:
-                outq.put((rank, True, globals()[name](*args, sh=sh)))
+                fn = getattr(importlib.import_module(module), name)
+                outq.put((rank, True, fn(*args, **kwargs, sh=sh)))
             except BaseException:  # reported to the parent, which raises
                 outq.put((rank, False, traceback.format_exc()))
     finally:
@@ -337,14 +340,22 @@ def step_batch(kind, seed=0):
 
 
 def run_steps(kind, mode="grads", n_steps=1, params_np=None, seed=0,
-              sh=ShardHelpers()):
+              sh=ShardHelpers(), extra=(), gspmd=False, fsdp=False,
+              batch_np=None, draws_np=None, ft_cached=True):
     """``n_steps`` of the kind's train step on the rank's block of the
     global batch. ``mode`` 'grads': one step whose optimizer returns the
     step's gradients -> ``(grads, aux)``; 'adam': Adam steps at the
     learning rate 0.01 -> ``(aux per step, params, gradients per
     step)``. ``params_np``
-    (numpy) replaces the seeded parameters. The LTS-family steps draw from
-    the rank's generator (the recipe makes the draws irrelevant)."""
+    (numpy) replaces the seeded parameters; ``extra`` overrides follow the
+    kind's. The LTS-family steps draw from the rank's generator (the
+    recipe makes the draws irrelevant under ``shard_map``), or take
+    ``draws_np`` (world 1's ``LTSDraws`` as numpy) at every step;
+    ``batch_np`` replaces the kind's global batch; ``ft_cached`` False
+    runs the fine-tune on its own march instead of the cached slots.
+    ``gspmd``: the world-size-independent layout (world 1's draws);
+    ``fsdp``: the grids and their moments as the rank's X-slabs (the
+    returned parameters and gradients gathered whole)."""
     from esrnerf_tpu_torch.apps.alphamask import build_alphamask_train_step
     from esrnerf_tpu_torch.apps.coarse import build_coarse_train_step
     from esrnerf_tpu_torch.apps.fine import build_fine_train_step
@@ -353,11 +364,21 @@ def run_steps(kind, mode="grads", n_steps=1, params_np=None, seed=0,
                                              build_pdra_train_step)
     from esrnerf_tpu_torch.optim import Adam
 
-    cfg = step_cfg(kind)
+    from esrnerf_tpu_torch.parallel.mesh import ParamLayout
+
+    cfg = step_cfg(kind, extra)
     model = step_model(kind, cfg)
+    if gspmd:
+        sh = ShardHelpers(sh.n, sh.rank, gspmd=True)
+    layout = ParamLayout(sh, fsdp=fsdp)
     params = (from_numpy(params_np) if params_np is not None
               else step_params(kind, model, seed))
-    b = step_batch(kind, seed)
+    b = step_batch(kind, seed) if batch_np is None else dict(batch_np)
+    draws = None
+    if draws_np is not None:
+        from esrnerf_tpu_torch.models.esrnerf import LTSDraws
+
+        draws = LTSDraws(*(torch.as_tensor(np.asarray(d)) for d in draws_np))
     # every group at lr 0.01, as the JAX package's cross-layout test
     opt = (GradsOut() if mode == "grads"
            else Recorded(Adam({k: 0.01 for k in params})))
@@ -371,45 +392,50 @@ def run_steps(kind, mode="grads", n_steps=1, params_np=None, seed=0,
                              ("rays_o", "rays_d", "viewdirs")),
             S_VAL, model.fastcolor_thres, model.neus_alpha, FT_PPR)
         b["ft_pts"], b["ft_valid"] = pts.numpy(), ok.numpy()
+    params = layout.place(params)
     state = opt.init(params) if mode == "adam" else None
     rows = {k: torch.as_tensor(shard_rows(v, sh.rank, sh.n))
             for k, v in b.items()}
     if hasattr(model, "lts_points_divisor"):
-        model.lts_points_divisor = sh.n
+        model.lts_points_divisor = 1 if gspmd else sh.n
     gen = sh.fold_generator("cpu", seed, 0)
     lr1 = {k: 1.0 for k in params}
     if kind in ("fine", "fine_sparse"):
-        step = build_fine_train_step(model, opt, cfg, device="cpu", sh=sh)
+        step = build_fine_train_step(model, opt, cfg, device="cpu", sh=sh,
+                                     layout=layout)
         call = lambda p, s: step(p, s, rows, S_VAL, lr1, *TV_ARGS,
                                  kind == "fine")
     elif kind == "alphamask":
         step = build_alphamask_train_step(model, opt, cfg, device="cpu",
-                                          sh=sh)
+                                          sh=sh, layout=layout)
         per_lr = {"density": torch.full_like(params["density"], 0.5)}
         call = lambda p, s: step(p, s, rows, 1.0, per_lr,
                                  rand_shift=rows["rand_shift"])
     elif kind == "coarse":
-        step = build_coarse_train_step(model, opt, cfg, device="cpu", sh=sh)
+        step = build_coarse_train_step(model, opt, cfg, device="cpu", sh=sh,
+                                       layout=layout)
         call = lambda p, s: step(p, s, rows, 20.0, lr1, 1.0, 0.1, 0.05)
     elif kind in ("lts", "pdra"):
         build = build_lts_train_step if kind == "lts" \
             else build_pdra_train_step
-        step = build(model, opt, cfg, device="cpu", sh=sh)
+        step = build(model, opt, cfg, device="cpu", sh=sh, layout=layout)
         call = lambda p, s: step(p, s, rows, S_VAL, lr1, *TV_ARGS, True,
-                                 generator=gen)
+                                 draws=draws, generator=gen)
     else:
-        step = build_finetune_step(model, opt, 0.5, sh)
-        call = lambda p, s: step(p, s, frozen, rows, S_VAL, generator=gen,
-                                 ft_pts=rows["ft_pts"],
-                                 ft_valid=rows["ft_valid"])
+        step = build_finetune_step(model, opt, 0.5, sh, layout)
+        call = lambda p, s: step(
+            p, s, frozen, rows, S_VAL, generator=gen,
+            ft_pts=rows["ft_pts"] if ft_cached else None,
+            ft_valid=rows["ft_valid"] if ft_cached else None)
     auxes = []
     for _ in range(n_steps):
         params, state, aux = call(params, state)
         auxes.append([float(a) for a in
                       (aux if isinstance(aux, tuple) else (aux,))])
     if mode == "grads":
-        return to_numpy(params), auxes[0]
-    return auxes, to_numpy(params), opt.grads
+        return to_numpy(layout.gather(params)), auxes[0]
+    return (auxes, to_numpy(layout.gather(params)),
+            [to_numpy(layout.gather(from_numpy(g))) for g in opt.grads])
 
 
 # --------------------------------------------------------- the eval sweeps
@@ -506,27 +532,39 @@ def entry_point(args, sh=ShardHelpers()):
 
 
 def refusals(sh=ShardHelpers()):
-    """On a world of ranks: a batch that does not divide it, and the
-    layouts the port has no path for; each error message."""
+    """On a world of ranks: a batch that does not divide it under each
+    layout, what ``gspmd`` and ``fsdp`` select, and the empty
+    ``mesh_axes`` refusal; each error message (None where nothing
+    raised)."""
     from esrnerf_tpu_torch.apps.fine import Fine
     from esrnerf_tpu_torch.config import load_cfg
 
     base = NO_AXES + ["system.device=cpu", "system.mesh_axes=[data]"]
     out = {}
-    app = Fine(load_cfg("cfg/app/fine.yaml", base, root_dir=REPO))
-    for name, fn in (("batch", lambda: app.check_shardable(62)),
-                     ("place", lambda: app.place_batch(rays(62)))):
+
+    def attempt(name, fn):
         try:
-            fn()
+            out[name] = fn()
         except ValueError as e:
             out[name] = str(e)
-    for name, ov in (("gspmd", ["system.parallel=gspmd"]),
-                     ("fsdp", ["system.param_shard=fsdp"]),
-                     ("no_axes", ["system.mesh_axes=[]"])):
-        try:
-            Fine(load_cfg("cfg/app/fine.yaml", base + ov, root_dir=REPO))
-        except ValueError as e:
-            out[name] = str(e)
+
+    apps = {name: Fine(load_cfg("cfg/app/fine.yaml", base + ov,
+                                root_dir=REPO))
+            for name, ov in (("shard_map", []),
+                             ("gspmd", ["system.parallel=gspmd"]),
+                             ("fsdp", ["system.parallel=gspmd",
+                                       "system.param_shard=fsdp"]),
+                             ("fsdp_shard_map",
+                              ["system.param_shard=fsdp"]))}
+    for name, app in apps.items():
+        attempt(f"batch/{name}", lambda: app.check_shardable(62))
+        attempt(f"place/{name}", lambda: app.place_batch(rays(62)))
+        out[f"select/{name}"] = (
+            app.parallel_mode, app.num_shards, app.shard_helpers().gspmd,
+            app.layout.fsdp)
+    attempt("no_axes", lambda: Fine(load_cfg(
+        "cfg/app/fine.yaml", base + ["system.mesh_axes=[]"],
+        root_dir=REPO)))
     return out
 
 
@@ -547,6 +585,10 @@ def test_world_one_helpers_are_the_identity():
     g1 = sh.fold_generator("cpu", 3, 5)
     g2 = ShardHelpers(4, 2, backend="gloo").fold_generator("cpu", 3, 5)
     assert g1.initial_seed() != g2.initial_seed()
+    # gspmd ranks draw world 1's stream
+    g3 = ShardHelpers(4, 2, backend="gloo", gspmd=True).fold_generator(
+        "cpu", 3, 5)
+    assert g1.initial_seed() == g3.initial_seed()
 
 
 def test_init_distributed_at_world_one_starts_nothing(monkeypatch):
@@ -573,19 +615,29 @@ def test_init_distributed_at_world_one_starts_nothing(monkeypatch):
 
 
 def test_layout_refusals_without_a_world():
-    """``system.parallel=gspmd``, ``system.param_shard=fsdp`` and empty
-    ``mesh_axes`` raise on a world of more than one rank (not at world 1);
-    rows that do not divide the world raise."""
+    """``system.parallel=gspmd`` and ``system.param_shard=fsdp`` pass on a
+    world of ranks; empty ``mesh_axes`` raises there (not at world 1), and
+    an unknown layout at any world; rows that do not divide the world
+    raise."""
     from esrnerf_tpu_torch.config import load_cfg
 
     base = list(NO_AXES)
-    for ov, msg in ((["system.mesh_axes=[data]", "system.parallel=gspmd"],
-                     "system.parallel=gspmd"),
-                    (["system.mesh_axes=[data]", "system.param_shard=fsdp"],
-                     "param_shard=fsdp"),
-                    (["system.mesh_axes=[]"], "mesh_axes empty")):
-        cfg = load_cfg("cfg/app/fine.yaml", base + ov, root_dir=REPO)
+    for ov in (["system.parallel=gspmd"], ["system.param_shard=fsdp"],
+               ["system.parallel=gspmd", "system.param_shard=fsdp"]):
+        cfg = load_cfg("cfg/app/fine.yaml",
+                       base + ["system.mesh_axes=[data]"] + ov,
+                       root_dir=REPO)
         check_parallel_cfg(cfg, 1)
+        check_parallel_cfg(cfg, 4)
+    for ov, msg, n_ok in (
+            (["system.mesh_axes=[]"], "mesh_axes empty", 1),
+            (["system.mesh_axes=[data]", "system.parallel=pjit"],
+             "system.parallel=pjit", None),
+            (["system.mesh_axes=[data]", "system.param_shard=zero3"],
+             "system.param_shard=zero3", None)):
+        cfg = load_cfg("cfg/app/fine.yaml", base + ov, root_dir=REPO)
+        if n_ok:
+            check_parallel_cfg(cfg, n_ok)
         with pytest.raises(ValueError, match=msg):
             check_parallel_cfg(cfg, 4)
     with pytest.raises(ValueError, match="do not divide"):
@@ -730,14 +782,24 @@ def test_eval_sweeps_world4_match_one_device(world4):
 
 
 def test_refusals_on_a_world(world4):
-    """On 4 ranks a batch that does not divide the world, ``gspmd``,
-    ``fsdp`` and empty ``mesh_axes`` each raise ``ValueError``."""
+    """On 4 ranks: a batch of 62 fails ``check_shardable`` under
+    ``shard_map`` and passes under ``gspmd``, and its rows fail
+    ``place_batch`` under both (as JAX's ``device_put``); ``gspmd``
+    selects world 1's point selection (1 shard) and global rows; ``fsdp``
+    shards the parameters under ``gspmd`` and is ignored under
+    ``shard_map``; empty ``mesh_axes`` raises ``ValueError``."""
     for msgs in world4.run(refusals):
-        assert msgs["batch"] == (
+        assert msgs["batch/shard_map"] == msgs["batch/fsdp_shard_map"] == (
             "batch_size=62 not divisible by 4 shards; adjust "
             "app.trainer.batch_size or set system.parallel=gspmd")
-        assert "do not divide over 4 ranks" in msgs["place"]
-        assert "gspmd" in msgs["gspmd"] and "fsdp" in msgs["fsdp"]
+        assert msgs["batch/gspmd"] is None and msgs["batch/fsdp"] is None
+        for name in ("shard_map", "gspmd", "fsdp", "fsdp_shard_map"):
+            assert "do not divide over 4 ranks" in msgs[f"place/{name}"]
+        assert msgs["select/shard_map"] == ("shard_map", 4, False, False)
+        assert msgs["select/fsdp_shard_map"] == ("shard_map", 4, False,
+                                                 False)
+        assert msgs["select/gspmd"] == ("gspmd", 1, True, False)
+        assert msgs["select/fsdp"] == ("gspmd", 1, True, True)
         assert "mesh_axes empty" in msgs["no_axes"]
 
 

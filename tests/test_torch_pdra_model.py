@@ -204,7 +204,9 @@ def test_forward_finetune_matches_reference(setup, cached):
     with torch.no_grad():
         res_t = tm.forward_finetune(train_t, frozen_t, *(tb[k] for k in keys),
                                     S_VAL, draws=draws, **ft_t)
-    assert set(res_t) == set(res_j)
+    # the port adds the secondary march's counts (what a data-parallel
+    # step folds)
+    assert set(res_t) == set(res_j) | {"etc/counts_2nd"}
     valid = np.asarray(res_j["lin/pbr/valid"])
     assert valid.sum() > 0 and float(res_j["etc/overflow"]) == 0.0
     np.testing.assert_array_equal(res_t["lin/pbr/valid"].numpy(), valid)

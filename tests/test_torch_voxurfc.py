@@ -95,7 +95,8 @@ def test_forward_training_matches_reference(models):
     ot = tm.forward_training(
         params_from_jax(params, "cpu"), *(_t(b[k]) for k in (
             "rays_o", "rays_d", "viewdirs", "em_modes")), S_VAL)
-    assert ot.keys() == oj.keys()
+    # the port adds its march's counts (what a data-parallel step folds)
+    assert ot.keys() == oj.keys() | {"etc/counts"}
     assert float(ot["etc/overflow"]) == float(oj["etc/overflow"]) == 0.0
     # the budget utilisations within an ulp (XLA's reciprocal multiply)
     for k in ("etc/k1_frac", "etc/k2_frac"):
