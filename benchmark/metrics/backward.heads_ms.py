@@ -1,0 +1,9 @@
+"""Device ms per traced training step of the operations launched inside the
+backward's range of the heads: radiance MLPs, tone-mapper, per-ray sums
+(<stage>/bwd_heads, on the autograd engine's thread)."""
+
+from benchmark.harness import readers
+
+
+def read(run):
+    return readers.range_ms(run, "train", lambda n: n.endswith("/bwd_heads"))

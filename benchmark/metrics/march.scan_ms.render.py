@@ -1,0 +1,9 @@
+"""Device ms per traced eval chunk of the operations launched inside the
+march's range march/scan: the transmittance scans and their gather back."""
+
+from benchmark.harness import readers
+
+
+def read(run):
+    return readers.range_ms(run, "render",
+                            lambda n: n.endswith("march/scan"))

@@ -41,9 +41,10 @@ Phases, in order; any failure exits non-zero:
    bound; then (grad_train) the same fine step with
    app.model.neus_alpha=grad, 2 warm-up and 10 timed steps, its profile,
    in-step launches (K-1..K-4 each launched, overflow 0) and captured
-   launches replayed as above, and five more steps under the port's
-   StepTimer, three of them inside its TraceCapture (a Chrome trace that
-   must exist), the timer's rays/s beside the host clock's; then
+   launches replayed as above, and five more steps in a span of the
+   port's span record, three of them inside its TraceCapture (a Chrome
+   trace that must exist), the record's rays/s beside the host clock's
+   and the backward's fine/bwd_* ranges in the trace; then
    (dp_train) data parallelism over two spawned ranks (gloo on one card;
    NCCL with a card a rank where there are two): each of the six small
    steps above (the LTS family on the layout-invariant recipe: Fibonacci
@@ -748,9 +749,9 @@ def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12,
                      overrides=(), trace_dir=None):
     """The fine train step at full width (``overrides`` on the config);
     returns its metrics and the launches per kernel over the timed steps.
-    With ``trace_dir``, five more steps run under ``StepTimer`` with steps
-    2-4 traced by ``TraceCapture`` (``system.profile_*``) into a Chrome
-    trace there."""
+    With ``trace_dir``, five more steps run in the span ``smoke/step``
+    with steps 2-4 traced by ``TraceCapture`` (``system.profile_*``) into
+    a Chrome trace there."""
     import torch
 
     from esrnerf_tpu_torch.apps.fine import build_fine_train_step
@@ -822,33 +823,40 @@ def train_full_width(device, num_voxels, n_rays, warmup=3, timed=12,
 
 
 def traced_steps(device, run, n_rays, trace_dir, first=300):
-    """Five synchronised steps ``run(first ..)`` ticking a ``StepTimer``,
-    steps 2-4 inside a ``TraceCapture`` configured as a run's
-    ``system.profile_*`` keys; the trace file must exist and hold events.
-    Returns the timer's rays/s beside the host clock's over the same
-    steps, and the trace's size."""
-    from esrnerf_tpu_torch.utils.profiling import StepTimer, TraceCapture
+    """Five synchronised steps ``run(first ..)``, each in the span
+    ``smoke/step``, steps 2-4 inside a ``TraceCapture`` configured as a
+    run's ``system.profile_*`` keys; the trace file must exist and hold
+    the backward's four ``fine/bwd_*`` ranges. Returns the span record's
+    rays/s beside the host clock's over the same steps, and the trace's
+    size."""
+    from esrnerf_tpu_torch.utils import profiling
 
-    cap = TraceCapture({"system": {"profile_dir": trace_dir,
-                                   "profile_from": first + 1,
-                                   "profile_steps": 3}})
-    timer = StepTimer(window=5)
+    cap = profiling.TraceCapture({"system": {"profile_dir": trace_dir,
+                                             "profile_from": first + 1,
+                                             "profile_steps": 3}})
+    before = profiling.snapshot()["spans"].get("smoke/step",
+                                               {"total_ns": 0})
     t0 = time.perf_counter()
     for i in range(first, first + 5):
         cap.step(i)
-        run(i)
-        sync(device)
-        timer.tick(n_rays)
+        with profiling.span("smoke/step"):
+            run(i)
+            sync(device)
     host = 5 * n_rays / (time.perf_counter() - t0)
     cap.close()
+    span_ns = (profiling.snapshot()["spans"]["smoke/step"]["total_ns"]
+               - before["total_ns"])
     if cap.path is None or not os.path.exists(cap.path):
         raise AssertionError(f"TraceCapture wrote no trace in {trace_dir}")
     with open(cap.path) as f:
-        head = f.read(1 << 16)
-    if '"traceEvents"' not in head or '"ph"' not in head:
-        raise AssertionError(f"no trace events in {cap.path}")
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events if e.get("ph") == "X"}
+    want = {f"fine/bwd_{p}" for p in ("loss", "heads", "features", "march")}
+    if not want <= names:
+        raise AssertionError(f"ranges {sorted(want - names)} not in "
+                             f"{cap.path}")
     return {"trace_bytes": os.path.getsize(cap.path),
-            "step_timer_rays_per_s": timer.stats()["rays_per_sec"],
+            "span_rays_per_s": 5 * n_rays / (span_ns / 1e9),
             "host_rays_per_s": host}
 
 

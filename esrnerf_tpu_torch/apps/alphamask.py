@@ -20,7 +20,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from esrnerf_tpu_torch.apps.base import (AppClass, composite_white_bg,
                                          gathers_params, import_class,
@@ -32,6 +31,7 @@ from esrnerf_tpu_torch.optim import Adam, exp_decay_factor, make_pervoxel_lr
 from esrnerf_tpu_torch.parallel.mesh import (ParamLayout, ShardHelpers,
                                             shard_rows)
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import loss2psnr
 
@@ -80,9 +80,9 @@ def build_alphamask_train_step(model: DVGO, opt: Adam, cfg, device="cuda",
     loss, backward and Adam update (in place) with every group's LR scaled
     by ``lr_scale`` and the per-voxel ``per_lr`` (group -> tensor). The
     rays' sample shifts come from ``generator`` (or ``rand_shift [N,
-    1]``). ``mse`` stays on the device. Phases run inside
-    ``record_function`` ranges ``alphamask/loss``, ``/backward`` and
-    ``/adam``. ``device="cuda"`` raises without CUDA.
+    1]``). ``mse`` stays on the device. Phases run inside the spans
+    ``alphamask/loss``, ``/backward`` and ``/adam``. ``device="cuda"``
+    raises without CUDA.
     """
     dev = resolve_device(device)
     if model.device.type != dev.type:
@@ -98,7 +98,7 @@ def build_alphamask_train_step(model: DVGO, opt: Adam, cfg, device="cuda",
             lambda p: alphamask_loss(model, p, batch, generator=generator,
                                      rand_shift=rand_shift, sh=sh, **kw),
             params, "alphamask", sh, layout)
-        with record_function("alphamask/adam"):
+        with profiling.span("alphamask/adam"):
             params, opt_state = opt.step(
                 params, grads, opt_state,
                 lr_scales={g: lr_scale for g in params}, per_lr=per_lr)
@@ -252,9 +252,11 @@ class AlphaMask(AppClass):
         logs: Dict[str, List[float]] = {"srgb/MSE": [], "srgb/PSNR": []}
         log_every = int(self.cfg.system["tqdm_iters"])
         t_log, n_since = time.perf_counter(), 0
+        host_ms, cap = profiling.HostMs(), profiling.TraceCapture(self.cfg)
 
         pbar = self.tqdm(range(self.global_step, self.n_iters), colour="green")
         for self.global_step in pbar:
+            cap.step(self.global_step)
             batch = self.place_batch(self.sampler.sample())
             shift = torch.rand((self.train_bs, 1), generator=gen,
                                device=self.device)
@@ -280,6 +282,7 @@ class AlphaMask(AppClass):
                 means["etc/overflow"] = 0.0
                 now = time.perf_counter()
                 means["etc/sec_per_step"] = (now - t_log) / n_since
+                means.update(host_ms.read())
                 t_log, n_since = now, 0
                 logger.log({f"train/metric/{k}": v for k, v in means.items()},
                            step=self.global_step)
@@ -293,6 +296,7 @@ class AlphaMask(AppClass):
                     shutil.copy2(ckpt_path, os.path.join(
                         ckpt_dir, f"{self.pretty_global_step}.ckpt"))
 
+        cap.close()
         self.cfg.app["eval"]["ckpt"] = ckpt_path
         if self.is_writer:
             save_cfg(self.cfg)

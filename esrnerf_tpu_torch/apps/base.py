@@ -41,7 +41,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from esrnerf_tpu_torch.parallel.mesh import (ParamLayout, ShardHelpers,
                                             check_parallel_cfg,
@@ -49,6 +48,7 @@ from esrnerf_tpu_torch.parallel.mesh import (ParamLayout, ShardHelpers,
                                             shard_rows)
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import png
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.logging import Logger, tqdm_safe
 from esrnerf_tpu_torch.utils.metrics import loss2psnr, rgb_lpips, rgb_ssim
 
@@ -85,8 +85,11 @@ def loss_and_grads(loss_fn: Callable, params, tag: str,
     """``loss_fn(p) -> (loss, aux)`` on a differentiable copy of the
     parameter tree; returns ``(aux, grads)`` with ``grads`` shaped like
     ``params`` (zeros where a leaf got no gradient). The loss and the
-    backward run inside ``record_function`` ranges ``<tag>/loss`` and
-    ``<tag>/backward``. On a world of ranks (``sh``) the gradients are then
+    backward run inside the spans ``<tag>/loss`` and ``<tag>/backward``;
+    where ``loss_fn`` marks its phases (:func:`~esrnerf_tpu_torch.utils.
+    profiling.bwd_mark`), a profiled backward is split into the ranges
+    ``<tag>/bwd_<phase>``, the loss terms' as ``<tag>/bwd_loss``. On a
+    world of ranks (``sh``) the gradients are then
     summed over the ranks (``<tag>/grad_allreduce``): ``loss_fn`` folds its
     terms with ``sh`` (recipe B), so the sum is the global gradient.
 
@@ -101,17 +104,22 @@ def loss_and_grads(loss_fn: Callable, params, tag: str,
              if layout is not None and p in layout.paths]
     inputs = list(leaves)
     if slabs:
-        with record_function(f"{tag}/all_gather"):
+        with profiling.span(f"{tag}/all_gather"):
             whole = layout.gather_for_grad([leaves[i] for i in slabs])
         for i, w in zip(slabs, whole):
             inputs[i] = w
-    with record_function(f"{tag}/loss"):
+    with profiling.span(f"{tag}/loss"), \
+            profiling.split_backward(tag) as split:
         loss, aux = loss_fn(tree_unflatten(paths, inputs))
-    with record_function(f"{tag}/backward"):
+        if split is not None and split.phases:
+            loss = profiling.bwd_mark("loss", loss)
+    with profiling.span(f"{tag}/backward"):
         gl = torch.autograd.grad(loss, leaves, allow_unused=True)
+        if split is not None:
+            split.close()
     gl = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, gl)]
     if sh is not None and sh.n > 1:
-        with record_function(f"{tag}/grad_allreduce"):
+        with profiling.span(f"{tag}/grad_allreduce"):
             sh.all_reduce_grads({i: g for i, g in enumerate(gl)
                                  if i not in slabs})
     return aux, tree_unflatten(paths, gl)
@@ -290,10 +298,11 @@ class AppClass:
         """A host batch on the device: the rank's contiguous block of its
         rows on a world of ranks (every rank samples the same global
         batch). Rows that do not divide the world raise ``ValueError``
-        under either layout."""
+        under either layout. Runs in the span ``data/place``."""
         n, r = self.world.n, self.world.rank
-        return {k: self.to_device(shard_rows(v, r, n))
-                for k, v in batch.items()}
+        with profiling.span("data/place"):
+            return {k: self.to_device(shard_rows(v, r, n))
+                    for k, v in batch.items()}
 
     def place_ray_chunk(self, *arrays) -> Tuple[List[torch.Tensor], bool]:
         """``(tensors on the device, split)`` for one eval chunk (leading dim
@@ -353,13 +362,20 @@ class AppClass:
         the budgets x2, then x4, instead of rendering it truncated. Past
         ``max_scale`` the chunk renders truncated and the worst overflow is
         kept for :meth:`pop_eval_truncation`. The returned dict still
-        carries ``etc/overflow``."""
+        carries ``etc/overflow``. Counts ``eval.chunks`` once a call and
+        ``eval.retries`` once a re-march; the host's wait on the overflow
+        is the span ``eval/overflow_wait``."""
+        profiling.count("eval.chunks")
         scale = 1
         while True:
             with self.scaled_budgets(scale):
                 out = fwd(*args)
             ovf = out.get("etc/overflow")
-            if ovf is None or float(ovf) <= 0.0:
+            if ovf is None:
+                return out
+            with profiling.span("eval/overflow_wait"):
+                clean = float(ovf) <= 0.0
+            if clean:
                 return out
             if scale >= max_scale:
                 v = float(ovf)
@@ -373,7 +389,7 @@ class AppClass:
                     self._trunc_warned = True
                 return out
             scale *= 2
-            self._overflow_retries = getattr(self, "_overflow_retries", 0) + 1
+            profiling.count("eval.retries")
 
     def pop_eval_truncation(self) -> float:
         """Worst truncated-overflow fraction since the last call (0.0 when

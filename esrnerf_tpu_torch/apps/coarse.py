@@ -22,7 +22,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from esrnerf_tpu_torch.apps.alphamask import entropy_last
 from esrnerf_tpu_torch.apps.base import (AppClass, composite_white_bg,
@@ -37,6 +36,7 @@ from esrnerf_tpu_torch.optim import Adam, exp_decay_factor
 from esrnerf_tpu_torch.parallel.mesh import ParamLayout, ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import mesh as meshutil
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import DTU_CD, loss2psnr
 
@@ -100,10 +100,11 @@ def build_coarse_train_step(model: VoxurfC, opt: Adam, cfg, device="cuda",
     tv_flag, sdf_tv, smooth_grad_tv) -> (params, opt_state, (mse,
     overflow, k1_frac, k2_frac))`` with the reference's argument order:
     one loss, backward and per-group Adam update (in place). The aux values
-    stay on the device. Phases run inside ``record_function`` ranges
-    (``coarse/loss``, ``/backward``, ``/adam``; the forward's
-    ``coarse/march``, ``/features``, ``/heads``). ``device="cuda"`` raises
-    without CUDA. TF32 is switched off, so the head matmuls run in f32.
+    stay on the device. Phases run inside spans
+    (:func:`~esrnerf_tpu_torch.utils.profiling.span`: ``coarse/loss``,
+    ``/backward``, ``/adam``; the forward's ``coarse/march``,
+    ``/features``, ``/heads``). ``device="cuda"`` raises without CUDA.
+    TF32 is switched off, so the head matmuls run in f32.
     """
     dev = resolve_device(device)
     if model.device.type != dev.type:
@@ -122,7 +123,7 @@ def build_coarse_train_step(model: VoxurfC, opt: Adam, cfg, device="cuda",
             lambda p: coarse_loss(model, p, batch, s_val, tv_flag, sdf_tv,
                                   smooth_grad_tv, sh=sh, **kw),
             params, "coarse", sh, layout)
-        with record_function("coarse/adam"):
+        with profiling.span("coarse/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
         mse, counts, fractions = aux
@@ -309,10 +310,12 @@ class Coarse(AppClass):
         logs: Dict[str, List[float]] = {"srgb/MSE": [], "srgb/PSNR": []}
         log_every = int(self.cfg.system["tqdm_iters"])
         t_log, n_since = time.perf_counter(), 0
+        host_ms, cap = profiling.HostMs(), profiling.TraceCapture(self.cfg)
 
         tune_step = self.global_step
         pbar = self.tqdm(range(self.global_step, self.n_iters), colour="green")
         for self.global_step in pbar:
+            cap.step(self.global_step)
             batch = self.place_batch(self.sampler.sample())
             s_val = self.s_val_at(self.global_step)
             self.renderer.s_val = s_val
@@ -347,6 +350,7 @@ class Coarse(AppClass):
                 means["etc/k2_frac"] = float(k2f)
                 now = time.perf_counter()
                 means["etc/sec_per_step"] = (now - t_log) / n_since
+                means.update(host_ms.read())
                 t_log, n_since = now, 0
                 logger.log({f"train/metric/{k}": v for k, v in means.items()},
                            step=self.global_step)
@@ -360,6 +364,7 @@ class Coarse(AppClass):
                     shutil.copy2(ckpt_path, os.path.join(
                         ckpt_dir, f"{self.pretty_global_step}.ckpt"))
 
+        cap.close()
         self.cfg.app["eval"]["ckpt"] = ckpt_path
         if self.is_writer:
             save_cfg(self.cfg)

@@ -23,7 +23,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from esrnerf_tpu_torch.apps.base import (AppClass, gathers_params,
                                          import_class, loss_and_grads)
@@ -37,6 +36,7 @@ from esrnerf_tpu_torch.optim import Adam, CosineLR
 from esrnerf_tpu_torch.parallel.mesh import ParamLayout, ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import mesh as meshutil
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import (DTU_CD, loss2psnr, rgb_lpips,
                                              rgb_ssim)
@@ -113,11 +113,13 @@ def build_fine_train_step(model, opt, cfg, device="cuda",
     :func:`~esrnerf_tpu_torch.models.voxurf_base.fold_counters`. The
     gradients are summed over the ranks before the SDF TV term
     (:func:`add_sdf_tv_grad`). With an ``fsdp`` ``layout`` the grids and
-    their moments are the rank's X-slabs. The phases run inside
-    ``torch.profiler.record_function`` ranges (``fine/loss``,
+    their moments are the rank's X-slabs. The phases run inside spans
+    (:func:`~esrnerf_tpu_torch.utils.profiling.span`: ``fine/loss``,
     ``fine/backward``, ``fine/grad_allreduce``, ``fine/sdf_tv_grad``,
     ``fine/adam``; the forward's own ``fine/march``, ``fine/features``,
-    ``fine/heads``) so a profile attributes device time to them.
+    ``fine/heads`` and the march's ``march/*``) so a profile attributes
+    device time to them; a profiled backward is split into
+    ``fine/bwd_{loss,heads,features,march}``.
 
     ``device`` must be the model's device; ``"cuda"`` (the default) raises
     without CUDA. TF32 is switched off for matmuls and cuDNN here, so the
@@ -145,10 +147,10 @@ def build_fine_train_step(model, opt, cfg, device="cuda",
                              sh=sh)
 
         aux, grads = loss_and_grads(loss_fn, params, "fine", sh, layout)
-        with torch.no_grad(), record_function("fine/sdf_tv_grad"):
+        with torch.no_grad(), profiling.span("fine/sdf_tv_grad"):
             add_sdf_tv_grad(model, whole.pop("sdf"), grads, tv_flag,
                             sdf_tv_w, tv_dense, layout)
-        with record_function("fine/adam"):
+        with profiling.span("fine/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
         mse, lin_mse, counts, fractions = aux
@@ -346,10 +348,12 @@ class Fine(AppClass):
         }
         log_every = int(self.cfg.system["tqdm_iters"])
         t_log, n_since = time.perf_counter(), 0
+        host_ms, cap = profiling.HostMs(), profiling.TraceCapture(self.cfg)
 
         tune_step = self.global_step
         pbar = self.tqdm(range(self.global_step, self.n_iters), colour="green")
         for self.global_step in pbar:
+            cap.step(self.global_step)
             if self.global_step in self.pg_scale:
                 # whole grids rescaled, then the sharding rule applied to
                 # the new shapes (fsdp), and a fresh optimizer state
@@ -403,6 +407,7 @@ class Fine(AppClass):
                 # reads above end each interval with a synchronise)
                 now = time.perf_counter()
                 means["etc/sec_per_step"] = (now - t_log) / n_since
+                means.update(host_ms.read())
                 means["etc/num_voxels"] = self.renderer.num_voxels
                 t_log, n_since = now, 0
                 logger.log({f"train/metric/{k}": v for k, v in means.items()},
@@ -417,6 +422,7 @@ class Fine(AppClass):
                     shutil.copy2(ckpt_path, os.path.join(
                         ckpt_dir, f"{self.pretty_global_step}.ckpt"))
 
+        cap.close()
         self.cfg.app["eval"]["ckpt"] = ckpt_path
         if self.is_writer:
             save_cfg(self.cfg)

@@ -28,7 +28,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from esrnerf_tpu_torch.apps.base import gathers_params, loss_and_grads
 from esrnerf_tpu_torch.apps.fine import Fine, add_sdf_tv_grad
@@ -43,6 +42,7 @@ from esrnerf_tpu_torch.optim import Adam, CosineLR
 from esrnerf_tpu_torch.parallel.mesh import ParamLayout, ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
 from esrnerf_tpu_torch.utils import png
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import loss2psnr
 
@@ -152,10 +152,10 @@ def build_lts_train_step(model, opt, cfg, device="cuda",
                             draws, generator, sh=sh, **kw)
 
         aux, grads = loss_and_grads(loss_fn, params, "lts", sh, layout)
-        with torch.no_grad(), record_function("lts/sdf_tv_grad"):
+        with torch.no_grad(), profiling.span("lts/sdf_tv_grad"):
             add_sdf_tv_grad(model, whole.pop("sdf"), grads, tv_flag,
                             sdf_tv_w, tv_dense, layout)
-        with record_function("lts/adam"):
+        with profiling.span("lts/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
         return params, opt_state, lts_counters(aux, 4, sh)
@@ -300,10 +300,12 @@ class LTS(Fine):
         }
         log_every = int(self.cfg.system["tqdm_iters"])
         t_log, n_since = time.perf_counter(), 0
+        host_ms, cap = profiling.HostMs(), profiling.TraceCapture(self.cfg)
 
         tune_step = self.global_step
         pbar = self.tqdm(range(self.global_step, self.n_iters), colour="green")
         for self.global_step in pbar:
+            cap.step(self.global_step)
             self.on_step_begin()
             batch = self.place_batch(self.sampler.sample())
             s_val = self.s_val_at(self.global_step)
@@ -356,6 +358,7 @@ class LTS(Fine):
                 # reads above end each interval with a synchronise)
                 now = time.perf_counter()
                 means["etc/sec_per_step"] = (now - t_log) / n_since
+                means.update(host_ms.read())
                 t_log, n_since = now, 0
                 logger.log({f"train/metric/{k}": v for k, v in means.items()},
                            step=self.global_step)
@@ -369,6 +372,7 @@ class LTS(Fine):
                     shutil.copy2(ckpt_path, os.path.join(
                         ckpt_dir, f"{self.pretty_global_step}.ckpt"))
 
+        cap.close()
         self.cfg.app["eval"]["ckpt"] = ckpt_path
         if self.is_writer:
             save_cfg(self.cfg)

@@ -30,7 +30,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from esrnerf_tpu_torch.apps.base import (gathers_params, import_class,
                                          loss_and_grads)
@@ -46,6 +45,7 @@ from esrnerf_tpu_torch.optim.adam import tree_map
 from esrnerf_tpu_torch.parallel.mesh import (ParamLayout, ShardHelpers,
                                             pad_to_multiple, shard_rows)
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import resolve_device
 from esrnerf_tpu_torch.utils.metrics import IoU, loss2psnr, rgb_lpips, rgb_ssim
 
@@ -165,10 +165,10 @@ def build_pdra_train_step(model, opt, cfg, device="cuda",
                              draws, generator, sh=sh, **kw)
 
         aux, grads = loss_and_grads(loss_fn, params, "pdra", sh, layout)
-        with torch.no_grad(), record_function("pdra/sdf_tv_grad"):
+        with torch.no_grad(), profiling.span("pdra/sdf_tv_grad"):
             add_sdf_tv_grad(model, whole.pop("sdf"), grads, tv_flag,
                             sdf_tv_w, tv_dense, layout)
-        with record_function("pdra/adam"):
+        with profiling.span("pdra/adam"):
             params, opt_state = opt.step(params, grads, opt_state,
                                          lr_scales=lr_scales)
         return params, opt_state, lts_counters(aux, 4, sh)
@@ -207,7 +207,7 @@ def build_finetune_step(model, opt, weight_lts: float,
 
         (loss, counts, overflow), grads = loss_and_grads(
             loss_fn, trainable, "relight", sh, layout)
-        with record_function("relight/adam"):
+        with profiling.span("relight/adam"):
             trainable, opt_state = opt.step(trainable, grads, opt_state)
         return trainable, opt_state, (
             loss.detach(), fold_counters((counts,), (overflow,), sh)[0])

@@ -1,5 +1,5 @@
 """Ray batch sampler; the port's copy of ``BatchSampler`` from
-``esrnerf_tpu/data/sampler.py`` (numpy only).
+``esrnerf_tpu/data/sampler.py`` (on numpy arrays).
 
 An epoch-free shuffled batcher over the preloaded ray pool, checkpointable
 via ``(batch_st, data_idxs)``. Shuffling uses an explicit
@@ -8,8 +8,9 @@ same batches for a seed. The pool lives in host memory; ``sample()``
 returns numpy slices that the trainer copies to the device. Rows are
 gathered with ``np.take`` and ``np.compress``: the same rows as fancy
 indexing, several times faster on the tens of millions of rays of a DTU
-scan. Also the port's copy of ``RayGroupManager``, the two-pool sampler
-of the LTS and PDRA stages.
+scan. ``sample()`` runs in the span ``data/sample``, a reshuffle in
+``data/shuffle``. Also the port's copy of ``RayGroupManager``, the
+two-pool sampler of the LTS and PDRA stages.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from esrnerf_tpu_torch.utils import profiling
 
 
 class BatchSampler:
@@ -47,11 +50,12 @@ class BatchSampler:
         return len(self.data_idxs)
 
     def shuffle(self) -> None:
-        order = self.rng.permutation(self.data_num)
-        self.data_idxs = self.data_idxs[order]
-        for k in self.keys:
-            self.data[k] = np.take(self.data[k], order, axis=0)
-        self.batch_st = 0
+        with profiling.span("data/shuffle"):
+            order = self.rng.permutation(self.data_num)
+            self.data_idxs = self.data_idxs[order]
+            for k in self.keys:
+                self.data[k] = np.take(self.data[k], order, axis=0)
+            self.batch_st = 0
 
     def filter(self, mask: np.ndarray) -> None:
         mask = np.asarray(mask, dtype=bool)
@@ -60,13 +64,14 @@ class BatchSampler:
         self.data_idxs = self.data_idxs[mask]
 
     def sample(self) -> Dict[str, np.ndarray]:
-        b_en = self.batch_st + self.batch_size
-        if b_en > self.data_num:
-            self.shuffle()
-            b_en = self.batch_size
-        b_st = self.batch_st
-        self.batch_st = b_en
-        return {k: self.data[k][b_st:b_en] for k in self.keys}
+        with profiling.span("data/sample"):
+            b_en = self.batch_st + self.batch_size
+            if b_en > self.data_num:
+                self.shuffle()
+                b_en = self.batch_size
+            b_st = self.batch_st
+            self.batch_st = b_en
+            return {k: self.data[k][b_st:b_en] for k in self.keys}
 
     def state(self) -> dict:
         return {"batch_st": self.batch_st, "data_idxs": self.data_idxs}
@@ -122,18 +127,22 @@ class RayGroupManager:
         return len(self.cert_data_idxs)
 
     def shuffle_uncert(self) -> None:
-        order = self.rng.permutation(self.uncert_data_num)
-        self.uncert_data_idxs = self.uncert_data_idxs[order]
-        for k in self.keys:
-            self.uncert_data[k] = np.take(self.uncert_data[k], order, axis=0)
-        self.uncert_batch_st = 0
+        with profiling.span("data/shuffle"):
+            order = self.rng.permutation(self.uncert_data_num)
+            self.uncert_data_idxs = self.uncert_data_idxs[order]
+            for k in self.keys:
+                self.uncert_data[k] = np.take(self.uncert_data[k], order,
+                                               axis=0)
+            self.uncert_batch_st = 0
 
     def shuffle_cert(self) -> None:
-        order = self.rng.permutation(self.cert_data_num)
-        self.cert_data_idxs = self.cert_data_idxs[order]
-        for k in self.keys:
-            self.cert_data[k] = np.take(self.cert_data[k], order, axis=0)
-        self.cert_batch_st = 0
+        with profiling.span("data/shuffle"):
+            order = self.rng.permutation(self.cert_data_num)
+            self.cert_data_idxs = self.cert_data_idxs[order]
+            for k in self.keys:
+                self.cert_data[k] = np.take(self.cert_data[k], order,
+                                               axis=0)
+            self.cert_batch_st = 0
 
     def shuffle(self) -> None:
         self.shuffle_uncert()
@@ -155,6 +164,10 @@ class RayGroupManager:
         self.uncert_data_idxs = self.uncert_data_idxs[mask]
 
     def sample(self) -> Dict[str, np.ndarray]:
+        with profiling.span("data/sample"):
+            return self._sample()
+
+    def _sample(self) -> Dict[str, np.ndarray]:
         u_en = self.uncert_batch_st + self.uncert_batch_size
         c_en = self.cert_batch_st + self.cert_batch_size
         if u_en > self.uncert_data_num:

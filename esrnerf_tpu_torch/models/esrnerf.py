@@ -37,7 +37,6 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from esrnerf_tpu_torch.models import mlp as mlpops
 from esrnerf_tpu_torch.models.voxurf_base import _linspace, rebudget_counts
@@ -45,6 +44,7 @@ from esrnerf_tpu_torch.models.voxurff import NORMAL_FLIPPER, VoxurfF
 from esrnerf_tpu_torch.ops import grid as gridops
 from esrnerf_tpu_torch.ops import pbr as pbrops
 from esrnerf_tpu_torch.ops.image import hsv_to_rgb, rgb_to_hsv
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import small_const
 
 Params = Dict[str, object]
@@ -235,7 +235,7 @@ class ESRNeRF(VoxurfF):
         geo = self.geo
         Nsec = rays_o.shape[0]
         nb = Nsec if budget_rays is None else budget_rays
-        with record_function("lts/march_2nd"):
+        with profiling.span("lts/march_2nd"):
             m = geo.march(
                 params["sdf"], rays_o, dirs, dirs, s_val, self.fastcolor_thres,
                 self.neus_alpha, style="fine",
@@ -388,7 +388,7 @@ class ESRNeRF(VoxurfF):
         marches' counts, which a data-parallel step folds over the ranks."""
         geo = self.geo
         glob = sh is not None and sh.global_rows
-        with record_function("lts/march"):
+        with profiling.span("lts/march"):
             m = geo.march(
                 params["sdf"], rays_o, rays_d, viewdirs, s_val,
                 self.fastcolor_thres, self.neus_alpha, style="fine",
@@ -401,14 +401,14 @@ class ESRNeRF(VoxurfF):
             draws = LTSDraws(*(d if i == 1 else d.index_select(0, pos)
                                for i, d in enumerate(draws)))
         rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
-        with record_function("lts/features"):
+        with profiling.span("lts/features"):
             _, exp_grad = self.sample_sdf_expgrad(params["sdf"], m.pts)
             taps = self._sdf_taps(params, m.pts, m.n_valid)
             feat = self._features(params, m.pts, viewdirs.index_select(0, rid),
                                   m.sdf, taps=taps)
         on_mask = ((em_modes.index_select(0, rid) == 1) & ~m.pad)[:, None]
 
-        with record_function("lts/heads"):
+        with profiling.span("lts/heads"):
             # the four color-grid reads at the march points in one gather
             off_gv, emo_gv, brdf_gv = geo.sample_grids_sorted(
                 (params["off_color"], params["emo_color"], params["brdf"]),
@@ -421,14 +421,14 @@ class ESRNeRF(VoxurfF):
             rgb_m = geo.segment_to_rays(m, rgb)
             lin_m = geo.segment_to_rays(m, lin_rgb)
 
-        with record_function("lts/brdf"):
+        with profiling.span("lts/brdf"):
             brdf_feat = self._brdf_feat(params, m.pts, m.sdf, taps=taps)
             basecolor, roughness, metallic, emit = self._brdf_heads(
                 params, m.pts, brdf_feat, grid_vals=(brdf_gv, emo_gv))
             emit_m = geo.segment_to_rays(m, emit)
         normal = _unit_normal(exp_grad).detach()
 
-        with record_function("lts/lts"):
+        with profiling.span("lts/lts"):
             chosen = True
             if glob:
                 sel, slots, lts_valid, chosen = self._select_global(
@@ -448,7 +448,7 @@ class ESRNeRF(VoxurfF):
                 budget_pts=self.n_lts_points if glob else None,
             )
 
-        with record_function("lts/brdf"):
+        with profiling.span("lts/brdf"):
             # eps-perturbed re-evaluations for the smoothness terms
             _, exp_grad_eps = self.sample_sdf_expgrad(
                 params["sdf"], m.pts + draws.normal_eps * normal_eps)
@@ -661,7 +661,7 @@ class ESRNeRF(VoxurfF):
         world = sh.n if glob else 1
         chosen = True
 
-        with record_function("relight/select"):
+        with profiling.span("relight/select"):
             if ft_pts is not None:
                 B, ppr = ft_valid.shape
                 flat_pts = ft_pts.reshape(B * ppr, 3)
@@ -687,7 +687,7 @@ class ESRNeRF(VoxurfF):
                 pts = flat_pts.index_select(0, sel)
                 rid_sel = torch.div(sel, ppr, rounding_mode="floor")
             else:
-                with record_function("relight/march"):
+                with profiling.span("relight/march"):
                     m = geo.march(full["sdf"], rays_o, rays_d, viewdirs,
                                   s_val, self.fastcolor_thres,
                                   self.neus_alpha, style="fine")
@@ -718,7 +718,7 @@ class ESRNeRF(VoxurfF):
             vd_rand = -dirs_all[:, -1]
             dirs = dirs_all[:, :-1]
 
-        with record_function("relight/heads"):
+        with profiling.span("relight/heads"):
             # surface emo radiance, the only branch with gradients. The
             # taps' pad-chunk skip holds only for the march's selection
             # (pads at the tail); cached slots interleave pads, so they
@@ -736,7 +736,7 @@ class ESRNeRF(VoxurfF):
             emo = F.softplus(mlpops.apply_mlp(
                 full["emo_rgbnet"], ex, compute_dtype=self.mlp_dtype))
 
-        with torch.no_grad(), record_function("relight/target"):
+        with torch.no_grad(), profiling.span("relight/target"):
             # the edited target. The taps equal those of the features but
             # for an all-invalid selection, whose rows no loss reads
             brdf_feat = self._brdf_feat(full, pts, sdf, taps=taps)

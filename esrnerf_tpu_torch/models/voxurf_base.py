@@ -36,6 +36,7 @@ from esrnerf_tpu_torch.ops import ray as rayops
 from esrnerf_tpu_torch.ops import render as renderops
 from esrnerf_tpu_torch.ops import scan as scanops
 from esrnerf_tpu_torch.ops import splat as splatops
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import resolve_device, small_const
 
 _PAD_KEY = 2**30
@@ -478,6 +479,12 @@ class VoxurfGeometry:
         budgets (K2, K1) and ``near_override`` the scene's near plane (the
         LTS secondary march).
 
+        The four stages run in the spans ``march/phase1`` (ray-box clip,
+        occupancy test, phase-1 compaction, points, exact re-test),
+        ``march/alpha`` (SDF samples, dense bridge, NeuS alpha),
+        ``march/scan`` (the transmittance scans, ``gather_back``) and
+        ``march/phase2`` (phase-2 compaction, cell sort, counts).
+
         ``neus_alpha="interp"`` pairs each sample with its ray's
         neighbours on the dense bridge; ``"grad"`` takes the section from
         ``gradient_grid`` (the SDF gradient, ``[X, Y, Z, 3]``) sampled at
@@ -499,186 +506,195 @@ class VoxurfGeometry:
         SB = -(-S // BLK)
         Sp = SB * BLK  # dense-bridge row stride
 
-        mn, mx = self.xyz_min_t, self.xyz_max_t
-        near_v = self.near if near_override is None else near_override
-        occ = self.band_occ64(sdf_grid_smooth, s_val) if band else None
-        t_min, t_max = rayops.ray_aabb(rays_o, rays_d, mn, mx, near_v, 1e9)
-        rnorm = rayops.ray_norm(rays_d)
-        n_steps = torch.clamp(
-            torch.ceil((t_max - t_min) * rnorm / self.stepdist), min=1.0)
+        with profiling.span("march/phase1"):
+            mn, mx = self.xyz_min_t, self.xyz_max_t
+            near_v = self.near if near_override is None else near_override
+            occ = self.band_occ64(sdf_grid_smooth, s_val) if band else None
+            t_min, t_max = rayops.ray_aabb(rays_o, rays_d, mn, mx, near_v, 1e9)
+            rnorm = rayops.ray_norm(rays_d)
+            n_steps = torch.clamp(
+                torch.ceil((t_max - t_min) * rnorm / self.stepdist), min=1.0)
 
-        if BLK > 1:
-            sbc = (torch.arange(SB, dtype=rays_o.dtype, device=dev) * BLK
-                   + (BLK - 1) / 2)
-            start = rays_o + rays_d * t_min[:, None]
-            dirn = rays_d / rnorm[:, None]
-            cpts = (start[:, None, :]
-                    + dirn[:, None, :] * (self.stepdist * sbc)[None, :, None])
-            blk_in = (sbc[None, :] - (BLK - 1) / 2) < n_steps[:, None]
-            if band:
-                # block-conservative dilation of the band mask: a block
-                # sample lies within halfspan of its centre, so its 64^3
-                # cell differs from the centre's by at most
-                # floor(halfspan / cell) + 1 per axis
-                halfspan = (BLK - 1) / 2 * self.stepdist
-                cell64 = float((self.xyz_max - self.xyz_min).min()) / 64.0
-                r = int(np.floor(halfspan / cell64)) + 1
-                occ_blk = gridops.max_pool_3d_same(occ[..., None],
-                                                   2 * r + 1)[..., 0]
-                blk_hit = self.query_nearest64(occ_blk, cpts)
+            if BLK > 1:
+                sbc = (torch.arange(SB, dtype=rays_o.dtype, device=dev) * BLK
+                       + (BLK - 1) / 2)
+                start = rays_o + rays_d * t_min[:, None]
+                dirn = rays_d / rnorm[:, None]
+                cpts = (start[:, None, :]
+                        + dirn[:, None, :]
+                        * (self.stepdist * sbc)[None, :, None])
+                blk_in = (sbc[None, :] - (BLK - 1) / 2) < n_steps[:, None]
+                if band:
+                    # block-conservative dilation of the band mask: a block
+                    # sample lies within halfspan of its centre, so its 64^3
+                    # cell differs from the centre's by at most
+                    # floor(halfspan / cell) + 1 per axis
+                    halfspan = (BLK - 1) / 2 * self.stepdist
+                    cell64 = float((self.xyz_max - self.xyz_min).min()) / 64.0
+                    r = int(np.floor(halfspan / cell64)) + 1
+                    occ_blk = gridops.max_pool_3d_same(occ[..., None],
+                                                       2 * r + 1)[..., 0]
+                    blk_hit = self.query_nearest64(occ_blk, cpts)
+                else:
+                    blk_hit = self._query_nearest_blk(cpts)
+                sup_blk = blk_in & blk_hit  # [N, SB]
+
+                # ---- phase-1 compaction at block granularity (ray-major)
+                n1 = sup_blk.sum() * BLK  # blocks enter whole
+                idxb = fixed_size_nonzero(sup_blk, K1 // BLK)
+                padb = idxb < 0
+                idxbc = torch.clamp(idxb, min=0)
+                rayb = torch.where(padb, torch.full_like(idxbc, N),
+                                   idxbc // SB)
+                jj = torch.arange(BLK, device=dev)
+                ray1 = rayb.repeat_interleave(BLK)
+                step1 = ((idxbc % SB) * BLK)[:, None] + jj[None, :]
+                step1 = torch.where(padb[:, None], torch.zeros_like(step1),
+                                    step1).reshape(-1)
+                pad1 = padb.repeat_interleave(BLK)
             else:
-                blk_hit = self._query_nearest_blk(cpts)
-            sup_blk = blk_in & blk_hit  # [N, SB]
+                rs = self.sample_dense(rays_o, rays_d, near=near_override)
+                occ_hit = (self.query_nearest64(occ, rs.pts) if band
+                           else self.mask_cache.query_nearest(rs.pts))
+                sup = rs.valid & occ_hit
 
-            # ---- phase-1 compaction at block granularity (ray-major)
-            n1 = sup_blk.sum() * BLK  # blocks enter whole
-            idxb = fixed_size_nonzero(sup_blk, K1 // BLK)
-            padb = idxb < 0
-            idxbc = torch.clamp(idxb, min=0)
-            rayb = torch.where(padb, torch.full_like(idxbc, N), idxbc // SB)
-            jj = torch.arange(BLK, device=dev)
-            ray1 = rayb.repeat_interleave(BLK)
-            step1 = ((idxbc % SB) * BLK)[:, None] + jj[None, :]
-            step1 = torch.where(padb[:, None], torch.zeros_like(step1),
-                                step1).reshape(-1)
-            pad1 = padb.repeat_interleave(BLK)
-        else:
-            rs = self.sample_dense(rays_o, rays_d, near=near_override)
-            occ_hit = (self.query_nearest64(occ, rs.pts) if band
-                       else self.mask_cache.query_nearest(rs.pts))
-            sup = rs.valid & occ_hit
+                # ---- phase-1 compaction (order-preserving => ray-major)
+                n1 = sup.sum()
+                idx1 = fixed_size_nonzero(sup, K1)
+                pad1 = idx1 < 0
+                idx1c = torch.clamp(idx1, min=0)
+                ray1 = torch.where(pad1, torch.full_like(idx1c, N), idx1c // S)
+                step1 = torch.where(pad1, torch.zeros_like(idx1c), idx1c % S)
 
-            # ---- phase-1 compaction (order-preserving => ray-major)
-            n1 = sup.sum()
-            idx1 = fixed_size_nonzero(sup, K1)
-            pad1 = idx1 < 0
-            idx1c = torch.clamp(idx1, min=0)
-            ray1 = torch.where(pad1, torch.full_like(idx1c, N), idx1c // S)
-            step1 = torch.where(pad1, torch.zeros_like(idx1c), idx1c % S)
+            # compacted points recomputed from (ray, step), the same float
+            # expression as sample_rays_dense: p = start + dirn * stepdist * s
+            r1c = torch.clamp(ray1, max=N - 1)
+            ray_pack = torch.cat(
+                [rays_o + rays_d * t_min[:, None], rays_d / rnorm[:, None],
+                 n_steps[:, None]], -1
+            )  # [N, 7] (start, dirn, count)
+            rp = ray_pack.index_select(0, r1c)
+            sd = self.stepdist * step1.to(rays_o.dtype)
+            pts1 = torch.stack(
+                [rp[:, 0] + rp[:, 3] * sd,
+                 rp[:, 1] + rp[:, 4] * sd,
+                 rp[:, 2] + rp[:, 5] * sd], -1)
 
-        # compacted points recomputed from (ray, step), the same float
-        # expression as sample_rays_dense: p = start + dirn * stepdist * s
-        r1c = torch.clamp(ray1, max=N - 1)
-        ray_pack = torch.cat(
-            [rays_o + rays_d * t_min[:, None], rays_d / rnorm[:, None],
-             n_steps[:, None]], -1
-        )  # [N, 7] (start, dirn, count)
-        rp = ray_pack.index_select(0, r1c)
-        sd = self.stepdist * step1.to(rays_o.dtype)
-        pts1 = torch.stack(
-            [rp[:, 0] + rp[:, 3] * sd,
-             rp[:, 1] + rp[:, 4] * sd,
-             rp[:, 2] + rp[:, 5] * sd], -1)
+            if BLK > 1:
+                # exact per-sample re-test on the compacted list
+                in_cnt = step1.to(rays_o.dtype) < rp[:, 6]
+                in_bb = ((pts1 >= mn) & (pts1 <= mx)).all(-1)
+                occ_ok = (self.query_nearest64(occ, pts1) if band
+                          else self.mask_cache.query_nearest(pts1))
+                samp_ok = ~pad1 & in_cnt & in_bb & occ_ok
+            else:
+                samp_ok = ~pad1
 
-        if BLK > 1:
-            # exact per-sample re-test on the compacted list
-            in_cnt = step1.to(rays_o.dtype) < rp[:, 6]
-            in_bb = ((pts1 >= mn) & (pts1 <= mx)).all(-1)
-            occ_ok = (self.query_nearest64(occ, pts1) if band
-                      else self.mask_cache.query_nearest(pts1))
-            samp_ok = ~pad1 & in_cnt & in_bb & occ_ok
-        else:
-            samp_ok = ~pad1
+            exact = samp_ok & self.mask_cache.query(pts1)
 
-        exact = samp_ok & self.mask_cache.query(pts1)
-        sdf1 = self.sample_grid(sdf_grid_smooth, pts1)[..., 0]  # [K1]
+        with profiling.span("march/alpha"):
+            sdf1 = self.sample_grid(sdf_grid_smooth, pts1)[..., 0]  # [K1]
 
-        # ---- dense scalar bridge: scatter the compacted scalars back to
-        # their (ray, step) slot; lin is ascending and pads land in row N
-        lin = torch.clamp(ray1, max=N) * Sp + step1
-        dsize = (N + 1) * Sp
-        nv1 = torch.clamp(n1, max=K1).to(torch.int32)
+            # ---- dense scalar bridge: scatter the compacted scalars back to
+            # their (ray, step) slot; lin is ascending and pads land in row N
+            lin = torch.clamp(ray1, max=N) * Sp + step1
+            dsize = (N + 1) * Sp
+            nv1 = torch.clamp(n1, max=K1).to(torch.int32)
 
-        def to_dense(x):
-            full = splatops.sorted_scatter_1d(lin, x, dsize, n_valid=nv1)
-            return full.reshape(N + 1, Sp)[:N]
+            def to_dense(x):
+                full = splatops.sorted_scatter_1d(lin, x, dsize, n_valid=nv1)
+                return full.reshape(N + 1, Sp)[:N]
 
-        if neus_alpha == "grad":
-            grad1 = self.sample_grid(gradient_grid, pts1)
-            alpha_d = to_dense(renderops.neus_alpha_grad_flat(
-                sdf1, grad1, viewdirs.index_select(0, r1c), self.stepdist,
-                exact, s_val))
-        else:
-            alpha_d = renderops.neus_alpha_interp(
-                to_dense(sdf1), to_dense(exact), s_val)
+            if neus_alpha == "grad":
+                grad1 = self.sample_grid(gradient_grid, pts1)
+                alpha_d = to_dense(renderops.neus_alpha_grad_flat(
+                    sdf1, grad1, viewdirs.index_select(0, r1c), self.stepdist,
+                    exact, s_val))
+            else:
+                alpha_d = renderops.neus_alpha_interp(
+                    to_dense(sdf1), to_dense(exact), s_val)
 
-        def gather_back(cols):
-            dense = torch.stack(cols, -1).reshape(-1, len(cols))
-            dense = torch.cat([dense, dense.new_zeros((Sp, len(cols)))])
-            return splatops.sorted_gather_rows(dense, lin, n_valid=nv1)
+        with profiling.span("march/scan"):
+            def gather_back(cols):
+                dense = torch.stack(cols, -1).reshape(-1, len(cols))
+                dense = torch.cat([dense, dense.new_zeros((Sp, len(cols)))])
+                return splatops.sorted_gather_rows(dense, lin, n_valid=nv1)
 
-        zero_d = torch.zeros_like(alpha_d)
-        if style == "fine":
-            pre_d = alpha_d > fastcolor_thres  # alpha is 0 at invalid slots
-            a1_d = torch.where(pre_d, alpha_d, zero_d)
-            w1_d, alphainv_last = scanops.alpha2weights_scan(
-                a1_d, renderops.EARLY_EXIT_T)
-            flat2 = gather_back([a1_d, w1_d])
-            keep = (flat2[:, 1] > fastcolor_thres) & ~pad1
-            zero = torch.zeros_like(flat2[:, 0])
-            alpha2 = torch.where(keep, flat2[:, 0], zero)
-            weights = torch.where(keep, flat2[:, 1], zero)
-        else:
-            w1_d, _ = scanops.alpha2weights_scan(alpha_d,
-                                                 renderops.EARLY_EXIT_T)
-            keep_d = w1_d > fastcolor_thres
-            alpha2_d = torch.where(keep_d, alpha_d, zero_d)
-            w_d, alphainv_last = scanops.alpha2weights_scan(
-                alpha2_d, renderops.EARLY_EXIT_T)
-            flat3 = gather_back([alpha_d, w1_d, w_d])
-            keep = (flat3[:, 1] > fastcolor_thres) & ~pad1
-            alpha2 = torch.where(keep, flat3[:, 0], torch.zeros_like(flat3[:, 0]))
-            weights = flat3[:, 2]
+            zero_d = torch.zeros_like(alpha_d)
+            if style == "fine":
+                # alpha is 0 at invalid slots
+                pre_d = alpha_d > fastcolor_thres
+                a1_d = torch.where(pre_d, alpha_d, zero_d)
+                w1_d, alphainv_last = scanops.alpha2weights_scan(
+                    a1_d, renderops.EARLY_EXIT_T)
+                flat2 = gather_back([a1_d, w1_d])
+                keep = (flat2[:, 1] > fastcolor_thres) & ~pad1
+                zero = torch.zeros_like(flat2[:, 0])
+                alpha2 = torch.where(keep, flat2[:, 0], zero)
+                weights = torch.where(keep, flat2[:, 1], zero)
+            else:
+                w1_d, _ = scanops.alpha2weights_scan(alpha_d,
+                                                     renderops.EARLY_EXIT_T)
+                keep_d = w1_d > fastcolor_thres
+                alpha2_d = torch.where(keep_d, alpha_d, zero_d)
+                w_d, alphainv_last = scanops.alpha2weights_scan(
+                    alpha2_d, renderops.EARLY_EXIT_T)
+                flat3 = gather_back([alpha_d, w1_d, w_d])
+                keep = (flat3[:, 1] > fastcolor_thres) & ~pad1
+                alpha2 = torch.where(keep, flat3[:, 0],
+                                     torch.zeros_like(flat3[:, 0]))
+                weights = flat3[:, 2]
 
-        # ---- phase-2 compaction to the static K2 head budget
-        n2 = keep.sum()
-        idx2 = fixed_size_nonzero(keep, K2)
-        pad = idx2 < 0
-        # pads clamp to the LAST row so idx2c stays ascending
-        idx2c = torch.where(pad, torch.full_like(idx2, K1 - 1), idx2)
+        with profiling.span("march/phase2"):
+            # ---- phase-2 compaction to the static K2 head budget
+            n2 = keep.sum()
+            idx2 = fixed_size_nonzero(keep, K2)
+            pad = idx2 < 0
+            # pads clamp to the LAST row so idx2c stays ascending
+            idx2c = torch.where(pad, torch.full_like(idx2, K1 - 1), idx2)
 
-        pack1 = torch.cat(
-            [pts1, weights[:, None], alpha2[:, None], sdf1[:, None]], -1
-        )  # [K1, 6]
-        nv2 = torch.clamp(n2, max=K2).to(torch.int32)
-        pack2 = splatops.sorted_gather_rows(pack1, idx2c, n_valid=nv2)
-        lin2 = lin.index_select(0, idx2c)
+            pack1 = torch.cat(
+                [pts1, weights[:, None], alpha2[:, None], sdf1[:, None]], -1
+            )  # [K1, 6]
+            nv2 = torch.clamp(n2, max=K2).to(torch.int32)
+            pack2 = splatops.sorted_gather_rows(pack1, idx2c, n_valid=nv2)
+            lin2 = lin.index_select(0, idx2c)
 
-        # re-order the compacted points by grid cell (every consumer is
-        # order-agnostic; the cell order gives the gather/splat locality)
-        X, Y, Z = self.world_size
-        ind = gridops.normalized_index(pack2[:, 0:3].detach(), mn, mx,
-                                       (X, Y, Z))
-        i0 = torch.floor(ind).to(torch.int64)
-        cell = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
-        key = torch.where(pad, torch.full_like(cell, _PAD_KEY), cell)
-        key, perm = torch.sort(key, stable=True)
-        inv_perm = torch.empty_like(perm).scatter_(
-            0, perm, torch.arange(perm.numel(), device=dev))
-        pack2 = splatops.permute_rows(pack2, perm, inv_perm)
-        lin2 = lin2.index_select(0, perm)
-        pad = pad.index_select(0, perm)
+            # re-order the compacted points by grid cell (every consumer is
+            # order-agnostic; the cell order gives the gather/splat locality)
+            X, Y, Z = self.world_size
+            ind = gridops.normalized_index(pack2[:, 0:3].detach(), mn, mx,
+                                           (X, Y, Z))
+            i0 = torch.floor(ind).to(torch.int64)
+            cell = (i0[:, 0] * Y + i0[:, 1]) * Z + i0[:, 2]
+            key = torch.where(pad, torch.full_like(cell, _PAD_KEY), cell)
+            key, perm = torch.sort(key, stable=True)
+            inv_perm = torch.empty_like(perm).scatter_(
+                0, perm, torch.arange(perm.numel(), device=dev))
+            pack2 = splatops.permute_rows(pack2, perm, inv_perm)
+            lin2 = lin2.index_select(0, perm)
+            pad = pad.index_select(0, perm)
 
-        pts_c = pack2[:, 0:3]
-        # pad rows collapse onto the last real (max-cell) row, so the base
-        # cells stay ascending and the pad tail is one cell
-        last_idx = torch.clamp(nv2.to(torch.int64) - 1, min=0).reshape(1)
-        last_real = pts_c.index_select(0, last_idx)
-        pts_c = torch.where(pad[:, None], last_real, pts_c)
-        zero = torch.zeros_like(pack2[:, 3])
-        w_c = torch.where(pad, zero, pack2[:, 3])
-        a_c = torch.where(pad, zero, pack2[:, 4])
-        sdf_c = torch.where(pad, zero, pack2[:, 5])
-        ray_c = torch.where(pad, torch.full_like(lin2, N), lin2 // Sp)
-        step_c = torch.where(pad, torch.zeros_like(lin2), lin2 % Sp)
+            pts_c = pack2[:, 0:3]
+            # pad rows collapse onto the last real (max-cell) row, so the base
+            # cells stay ascending and the pad tail is one cell
+            last_idx = torch.clamp(nv2.to(torch.int64) - 1, min=0).reshape(1)
+            last_real = pts_c.index_select(0, last_idx)
+            pts_c = torch.where(pad[:, None], last_real, pts_c)
+            zero = torch.zeros_like(pack2[:, 3])
+            w_c = torch.where(pad, zero, pack2[:, 3])
+            a_c = torch.where(pad, zero, pack2[:, 4])
+            sdf_c = torch.where(pad, zero, pack2[:, 5])
+            ray_c = torch.where(pad, torch.full_like(lin2, N), lin2 // Sp)
+            step_c = torch.where(pad, torch.zeros_like(lin2), lin2 % Sp)
 
-        cum_weights = torch.zeros(N + 1, dtype=w_c.dtype, device=dev) \
-            .index_add(0, ray_c, w_c)[:N]
-        n12 = torch.stack([n1, n2]).to(torch.float32)
-        k12 = torch.full_like(n12, K1)
-        k12[1] = K2
-        counts = torch.cat([n12, k12, torch.clamp(n12 - k12, min=0)])
-        overflow, k1_frac, k2_frac = march_fractions(counts)
+            cum_weights = torch.zeros(N + 1, dtype=w_c.dtype, device=dev) \
+                .index_add(0, ray_c, w_c)[:N]
+            n12 = torch.stack([n1, n2]).to(torch.float32)
+            k12 = torch.full_like(n12, K1)
+            k12[1] = K2
+            counts = torch.cat([n12, k12, torch.clamp(n12 - k12, min=0)])
+            overflow, k1_frac, k2_frac = march_fractions(counts)
         return March(
             pts=pts_c, ray_id=ray_c, step_id=step_c, weights=w_c, alpha=a_c,
             sdf=sdf_c, pad=pad, alphainv_last=alphainv_last,

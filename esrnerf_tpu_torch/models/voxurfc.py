@@ -18,12 +18,12 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-from torch.profiler import record_function
 
 from esrnerf_tpu_torch.models import mlp as mlpops
 from esrnerf_tpu_torch.models.voxurf_base import MaskCache, VoxurfGeometry
 from esrnerf_tpu_torch.ops import grid as gridops
 from esrnerf_tpu_torch.ops import tv as tvops
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import small_const
 
 Params = Dict[str, object]
@@ -120,14 +120,14 @@ class VoxurfC:
 
     def _march_features(self, params, rays_o, rays_d, viewdirs, s_val):
         geo = self.geo
-        with record_function("coarse/march"):
+        with profiling.span("coarse/march"):
             # the unsmoothed SDF's gradient: the grad-variant alpha's
             # sections here, the normals below
             grad_grid = geo.sdf_gradient(params["sdf"])
             m = geo.march(self.smoothed_sdf(params), rays_o, rays_d, viewdirs,
                           s_val, self.fastcolor_thres, self.neus_alpha,
                           style="coarse", gradient_grid=grad_grid)
-        with record_function("coarse/features"):
+        with profiling.span("coarse/features"):
             grad_pts = geo.sample_grid_sorted(grad_grid, m.pts)
             normal = grad_pts / (
                 torch.linalg.vector_norm(grad_pts, dim=-1, keepdim=True)
@@ -147,7 +147,7 @@ class VoxurfC:
         m, rid, _, feat = self._march_features(params, rays_o, rays_d,
                                                viewdirs, s_val)
         on_mask = (em_modes.index_select(0, rid) == 1) & ~m.pad
-        with record_function("coarse/heads"):
+        with profiling.span("coarse/heads"):
             rgb, _, _ = self._heads(params, m.pts, feat, on_mask)
             rgb_m = self.geo.segment_to_rays(m, rgb)
         return {

@@ -19,12 +19,12 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from esrnerf_tpu_torch.models import mlp as mlpops
 from esrnerf_tpu_torch.models.voxurf_base import MaskCache, VoxurfGeometry
 from esrnerf_tpu_torch.ops import grid as gridops
 from esrnerf_tpu_torch.ops import tv as tvops
+from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import small_const
 
 Params = Dict[str, object]
@@ -185,12 +185,12 @@ class VoxurfF:
         return F.softplus(mlpops.apply_mlp(
             params[f"{head}_rgbnet"], x, compute_dtype=self.mlp_dtype))
 
-    def _march_gradient(self, params: Params):
+    def _march_gradient(self, sdf: torch.Tensor):
         """The SDF gradient grid the grad-variant march alpha takes, None
         for the interp variant."""
         if self.neus_alpha != "grad":
             return None
-        return self.geo.sdf_gradient(params["sdf"])
+        return self.geo.sdf_gradient(sdf)
 
     # -------------------------------------------------------------- forwards
 
@@ -198,21 +198,29 @@ class VoxurfF:
                          em_modes, s_val) -> Dict[str, torch.Tensor]:
         """The fine training forward; ``etc/counts`` are the march's counts
         (:func:`~esrnerf_tpu_torch.models.voxurf_base.march_fractions`),
-        which a data-parallel step folds over the ranks."""
+        which a data-parallel step folds over the ranks. The march, the
+        features and the heads mark their outputs for the profiled
+        backward's ranges ``fine/bwd_{march,features,heads}``
+        (:func:`~esrnerf_tpu_torch.utils.profiling.bwd_mark`)."""
         geo = self.geo
-        with record_function("fine/march"):
+        with profiling.span("fine/march"):
+            sdf = profiling.bwd_mark(None, params["sdf"])
             m = geo.march(
-                params["sdf"], rays_o, rays_d, viewdirs, s_val,
+                sdf, rays_o, rays_d, viewdirs, s_val,
                 self.fastcolor_thres, self.neus_alpha, style="fine",
-                gradient_grid=self._march_gradient(params),
+                gradient_grid=self._march_gradient(sdf),
             )
+            w, a_last = profiling.bwd_mark("march", m.weights,
+                                           m.alphainv_last)
+            m = m._replace(weights=w, alphainv_last=a_last)
         rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
-        with record_function("fine/features"):
-            feat = self._features(params, m.pts, viewdirs.index_select(0, rid),
-                                  m.sdf, n_valid=m.n_valid)
+        with profiling.span("fine/features"):
+            feat = profiling.bwd_mark("features", self._features(
+                params, m.pts, viewdirs.index_select(0, rid), m.sdf,
+                n_valid=m.n_valid))
         on_mask = ((em_modes.index_select(0, rid) == 1) & ~m.pad)[:, None]
 
-        with record_function("fine/heads"):
+        with profiling.span("fine/heads"):
             off_gv, emo_gv = geo.sample_grids_sorted(
                 (params["off_color"], params["emo_color"]), m.pts, m.n_valid
             )
@@ -220,8 +228,9 @@ class VoxurfF:
             emo = self._radiance(params, "emo", feat, emo_gv)
             lin_rgb = torch.where(on_mask, emo + off.detach(), off)
             rgb = self.apply_tonemapper(params, lin_rgb)
-            rgb_m = geo.segment_to_rays(m, rgb)
-            lin_m = geo.segment_to_rays(m, lin_rgb)
+            rgb_m, lin_m = profiling.bwd_mark(
+                "heads", geo.segment_to_rays(m, rgb),
+                geo.segment_to_rays(m, lin_rgb))
 
         return {
             "etc/alphainv_cum": m.alphainv_last,
@@ -240,45 +249,51 @@ class VoxurfF:
         """Eval render of one chunk of rays with one emission mode: off, on
         (= off + emo) and emo radiance in linear and tone-mapped sRGB, the
         camera-space normal map, depth and disparity. ``pos_rt`` is the
-        camera's ``[3, 3]`` rotation; ``etc/overflow`` is the march's."""
+        camera's ``[3, 3]`` rotation; ``etc/overflow`` is the march's. The
+        phases run in the spans ``fine/march``, ``fine/features`` (the
+        head features and the normals) and ``fine/heads`` (the heads, the
+        tone-mapper and the per-ray sums)."""
         geo = self.geo
-        with record_function("fine/march"):
+        with profiling.span("fine/march"):
             m = geo.march(
                 params["sdf"], rays_o, rays_d, viewdirs, s_val,
                 self.fastcolor_thres, self.neus_alpha, style="fine",
-                gradient_grid=self._march_gradient(params),
+                gradient_grid=self._march_gradient(params["sdf"]),
             )
         rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
-        feat = self._features(params, m.pts, viewdirs.index_select(0, rid),
-                              m.sdf, n_valid=m.n_valid)
-        off_gv, emo_gv = geo.sample_grids_sorted(
-            (params["off_color"], params["emo_color"]), m.pts, m.n_valid
-        )
-        lin_off = self._radiance(params, "off", feat, off_gv)
-        lin_emo = self._radiance(params, "emo", feat, emo_gv)
-        lin_on = lin_off + lin_emo
-        off = self.apply_tonemapper(params, lin_off)
-        emo = self.apply_tonemapper(params, lin_emo)
-        on = self.apply_tonemapper(params, lin_on)
+        with profiling.span("fine/features"):
+            feat = self._features(params, m.pts,
+                                  viewdirs.index_select(0, rid), m.sdf,
+                                  n_valid=m.n_valid)
+            _, grad_xyz = geo.sample_sdf_grad(params["sdf"], m.pts)
+            normal = grad_xyz / torch.clamp(
+                torch.linalg.vector_norm(grad_xyz, dim=-1, keepdim=True),
+                min=1e-12)
+            flip = small_const(NORMAL_FLIPPER, torch.float32, normal.device)
+            nrm = ((normal @ pos_rt) * flip + 1.0) / 2.0
 
-        _, grad_xyz = geo.sample_sdf_grad(params["sdf"], m.pts)
-        normal = grad_xyz / torch.clamp(
-            torch.linalg.vector_norm(grad_xyz, dim=-1, keepdim=True),
-            min=1e-12)
-        flip = small_const(NORMAL_FLIPPER, torch.float32, normal.device)
-        nrm = ((normal @ pos_rt) * flip + 1.0) / 2.0
+        with profiling.span("fine/heads"):
+            off_gv, emo_gv = geo.sample_grids_sorted(
+                (params["off_color"], params["emo_color"]), m.pts, m.n_valid
+            )
+            lin_off = self._radiance(params, "off", feat, off_gv)
+            lin_emo = self._radiance(params, "emo", feat, emo_gv)
+            lin_on = lin_off + lin_emo
+            off = self.apply_tonemapper(params, lin_off)
+            emo = self.apply_tonemapper(params, lin_emo)
+            on = self.apply_tonemapper(params, lin_on)
 
-        out = {}
-        for key, v in [
-            ("srgb/off_rgb", off), ("lin/off_rgb", lin_off),
-            ("srgb/on_rgb", on), ("lin/on_rgb", lin_on),
-            ("srgb/emo_rgb", emo), ("lin/emo_rgb", lin_emo),
-            ("etc/normal", nrm),
-        ]:
-            out[key] = geo.segment_to_rays(m, v)
+            out = {}
+            for key, v in [
+                ("srgb/off_rgb", off), ("lin/off_rgb", lin_off),
+                ("srgb/on_rgb", on), ("lin/on_rgb", lin_on),
+                ("srgb/emo_rgb", emo), ("lin/emo_rgb", lin_emo),
+                ("etc/normal", nrm),
+            ]:
+                out[key] = geo.segment_to_rays(m, v)
 
-        depth = geo.segment_to_rays(
-            m, m.step_id.to(torch.float32) * geo.stepdist)
+            depth = geo.segment_to_rays(
+                m, m.step_id.to(torch.float32) * geo.stepdist)
         disp = 1.0 / (depth + m.alphainv_last * geo.far)
         is_off = int(em_mode) == 0
         out.update({

@@ -54,7 +54,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from esrnerf_tpu_torch.utils import profiling
 
 # seconds a collective may wait for the other ranks before it raises
 TIMEOUT_S = 900
@@ -506,12 +507,12 @@ class _GatherSlabs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sh, *slabs):
         ctx.sh = sh
-        with record_function("fsdp/all_gather"):
+        with profiling.span("fsdp/all_gather"):
             return tuple(sh.gather_rows(s) for s in slabs)
 
     @staticmethod
     def backward(ctx, *grads):
-        with record_function("fsdp/reduce_scatter"):
+        with profiling.span("fsdp/reduce_scatter"):
             return (None, *(ctx.sh.reduce_scatter_flat(g) for g in grads))
 
 

@@ -392,7 +392,8 @@ def dtu_chain(tmp_path_factory):
 
 
 def _run_stage(root, stage, n):
-    """One stage through ``run.main``: ``(log dir, metric rows)``."""
+    """One stage through ``run.main``: ``(log dir, metric rows)``; its
+    second step traced into ``<root>/prof/<stage>`` (``system.profile_*``)."""
     app = trun.main([
         "-cn", os.path.join(REPO, f"cfg/exp/dtu/97/{stage}.yaml"),
         "app.phase=train", f"data.root={root}/data",
@@ -401,7 +402,9 @@ def _run_stage(root, stage, n):
         "system.tqdm_iters=1", "system.device=cpu",
         "app.eval.batch_size=400", "app.trainer.N_vis=1",
         f"app.trainer.n_iters={n}", f"app.trainer.vis_every={n}",
-        f"app.trainer.save_every={n}", *MICRO[stage]])
+        f"app.trainer.save_every={n}", f"system.profile_dir={root}/prof/"
+        f"{stage}", "system.profile_from=1", "system.profile_steps=1",
+        *MICRO[stage]])
     assert app.global_step == n - 1
     with open(os.path.join(app.cfg.log["dir"], "metrics.jsonl")) as f:
         return app.cfg.log["dir"], [json.loads(ln) for ln in f]
@@ -411,14 +414,26 @@ def test_run_main_chains_dtu_alphamask_to_lts_on_cpu(dtu_chain):
     """Coarse, fine and LTS log a finite ``mesh/CD``, fine and LTS the
     off-light HDR error (DTU's test HDRs are its images); every march keeps
     samples on every step without overflow (an empty march has no overflow
-    either), the LTS secondary march too."""
-    _, runs = dtu_chain
+    either), the LTS secondary march too. Each stage's loop traced its
+    second step (the fine backward split by phase) and logged its spans'
+    host ms."""
+    root, runs = dtu_chain
     evals = {}
     for stage, n in ITERS.items():
         log_dir, rows = runs[stage]
         assert all(np.isfinite(v) for r in rows for v in r.values())
         train = [r for r in rows if "train/metric/srgb/MSE" in r]
         assert [r["step"] for r in train] == list(range(n))
+        for k in (f"{stage}/loss", f"{stage}/backward", "data/sample",
+                  "data/place"):
+            assert all(r[f"train/metric/etc/host_ms/{k}"] > 0
+                       for r in train), (stage, k)
+        with open(f"{root}/prof/{stage}/trace_1.json") as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert {f"{stage}/loss", f"{stage}/backward", "data/sample"} <= names
+        bwd = {f"fine/bwd_{p}" for p in ("loss", "heads", "features",
+                                         "march")}
+        assert (bwd <= names) == (stage == "fine"), stage
         if stage != "alphamask":
             assert all(r["train/metric/etc/overflow"] == 0.0 for r in train)
             fracs = ["k1_frac", "k2_frac"] + (

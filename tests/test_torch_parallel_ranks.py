@@ -46,6 +46,7 @@ from esrnerf_tpu_torch.data.synthetic import write_scene
 from esrnerf_tpu_torch.parallel.mesh import (ShardHelpers, check_parallel_cfg,
                                             pad_to_multiple, shard_rows,
                                             sharded_train_step)
+from esrnerf_tpu_torch.utils import profiling
 from chip_smoke import write_coarse_ckpt
 from test_torch_common import OVERRIDES, REPO, ball_density, rays
 
@@ -468,6 +469,7 @@ def eval_sweeps(seed=0, sh=ShardHelpers()):
     app.test_dataset, app.eval_bs = _TestImages(10, 7), 32
     p = app.params
     pos_rt = torch.eye(3)
+    retries0 = profiling.snapshot()["counters"].get("eval.retries", 0)
     b = rays(70, seed)
     out = {}
     imgs = app.render_image(
@@ -500,7 +502,8 @@ def eval_sweeps(seed=0, sh=ShardHelpers()):
             o = app.run_chunk(
                 lambda *a: app.eval_chunk_retry(fn, p, *a, S_VAL), *arr)
             out.update({f"eval_{name}{n}/{k}": v for k, v in o.items()})
-    out["retries"] = getattr(app, "_overflow_retries", 0)
+    out["retries"] = (profiling.snapshot()["counters"].get("eval.retries", 0)
+                      - retries0)
     return to_numpy(out)
 
 

@@ -1,8 +1,8 @@
 """The port's small tools against the JAX package's: the budget advisor
 (``scan``'s arrays and the printed report, on one ``metrics.jsonl``),
 ``posenc`` and ``freqs``, the image functions ``remove_gamma_curve``,
-``mse2psnr`` and ``tensor2img``; and the profiling hooks, ``StepTimer``'s
-window and a ``TraceCapture`` writing a Chrome trace on the CPU."""
+``mse2psnr`` and ``tensor2img``; and a ``TraceCapture`` writing a Chrome
+trace on the CPU (the spans and counters: ``test_torch_profiling.py``)."""
 
 import importlib.util
 import json
@@ -15,7 +15,6 @@ import torch
 
 from esrnerf_tpu.ops import encoding as jenc
 from esrnerf_tpu.ops import image as jimg
-from esrnerf_tpu.utils import profiling as jprof
 from esrnerf_tpu_torch.ops import encoding as tenc
 from esrnerf_tpu_torch.ops import image as timg
 from esrnerf_tpu_torch.scripts import budget_advisor as tadv
@@ -132,20 +131,6 @@ def test_image_functions_match_jax():
         want = jimg.tensor2img(np.asarray(arr))
         assert got.dtype == want.dtype == np.uint8
         np.testing.assert_array_equal(got, want)
-
-
-def test_step_timer_window():
-    t, j = tprof.StepTimer(window=3), jprof.StepTimer(window=3)
-    assert t.stats() == j.stats() == {"steps_per_sec": 0.0,
-                                      "rays_per_sec": 0.0}
-    for timer in (t, j):
-        for n in (100, 200, 300, 400, 500):
-            timer.tick(n)
-        timer.times = type(timer.times)([0.0, 1.0, 2.0, 4.0],
-                                        maxlen=timer.window + 1)
-    assert list(t.rays) == list(j.rays) == [300, 400, 500]
-    assert t.stats() == j.stats() == {"steps_per_sec": 0.75,
-                                      "rays_per_sec": 300.0}
 
 
 def test_trace_capture_writes_a_chrome_trace(tmp_path):
