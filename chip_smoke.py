@@ -16,7 +16,11 @@ Phases, in order; any failure exits non-zero:
    the same function; K-1 bitwise against its plain version, K-2 bitwise
    against the script's own sequential float32 oracle, and the scan's
    cp.async route timed beside its TMA route; and the K-3 row again with
-   every value zero (the atomics' share of its time);
+   every value zero (the atomics' share of its time); then H-1, the fused
+   fine eval heads, against the eager heads on the same card tensors at
+   the render chunk's shapes (262,144 head rows, 9,800 live, 16,384 rays,
+   NaN pad rows), within 3e-4 of each sum's largest magnitude, timed at
+   9,800 live rows and with every row live;
 4. check: one small fine step, one small alphamask step, one small coarse
    step, one small LTS step, one small PDRA step and one small relighting
    fine-tune step on each of its two paths (from the same random draws)
@@ -92,10 +96,11 @@ Phases, in order; any failure exits non-zero:
    eval with metrics and a 512^3 mesh, checkpoints; a resume to step 28;
    then the test_nv eval of the saved checkpoint. Asserts finite metrics,
    overflow 0, the eval files, the resume step, and the kernels launched
-   in train (K-1..K-4) and in eval (K-1, K-4). Then the LTS stage from that
-   fine checkpoint, found by path: 16 steps (the config's budgets), eval
-   with the envmap images and the mesh, checkpoint, a resume to step 18
-   and the test_nv eval of the saved checkpoint, with the same asserts;
+   in train (K-1..K-4) and in eval (K-1, K-4, H-1). Then the LTS stage
+   from that fine checkpoint, found by path: 16 steps (the config's
+   budgets), eval with the envmap images and the mesh, checkpoint, a
+   resume to step 18 and the test_nv eval of the saved checkpoint, with
+   the same asserts;
    then (import) that LTS checkpoint rewritten in the reference's layout
    (torch tensors, its key names, a pickled config whose class's module
    is not installed), imported by python -m
@@ -153,7 +158,8 @@ Phases, in order; any failure exits non-zero:
 
 Prints one JSON line per phase (each with ``elapsed_s``, the seconds since
 the script started), then the kernel table as one JSON object
-(``launches``: the fine step's; ``launches_lts_step``,
+(``launches``: the fine step's, but H-1's: the trainer phase's test_nv
+eval's; ``launches_lts_step``,
 ``launches_pdra_step``, ``launches_finetune_step``: those steps';
 ``launches_grad_step``: the grad-alpha fine step's;
 ``launches_dp_step``: rank 0's in the dp phase's full-width fine step;
@@ -177,6 +183,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12  # bf16 on the tensor cores, dense
 
 # full-width fine step (cfg/app/fine.yaml with the benchmark's overrides)
 FINE_OVERRIDES = [
@@ -201,7 +208,14 @@ KERNEL_SOURCES = {
                         "esrnerf_tpu/ops/splat.py:403"),
     "gather_raw": ("esrnerf_tpu_torch/csrc/gather.cu",
                    "esrnerf_tpu/ops/splat.py:403"),
+    "eval_heads": ("esrnerf_tpu_torch/csrc/heads.cu",
+                   "none: XLA ops of esrnerf_tpu/models/voxurff.py:"
+                   "forward_evaluate"),
 }
+# H-1 against the eager heads: largest gap of a per-ray sum over the eager
+# sum's largest magnitude (read on an H100: <= 7.9e-5; the same exact bf16
+# products summed in another order can round an activation the other way)
+HEADS_GAP = 3e-4
 
 
 _T0 = time.perf_counter()
@@ -541,6 +555,99 @@ def check_kernels(device, N, S, M1, n_cells, K2, grid_res, seed=0):
         4 * (n_live + uniq + K2 * 24), 0,
         time_ms(lambda: torch.take(sdf, idx_r), device))
     return rows
+
+
+def check_eval_heads(device, M=262144, n_rays=16384, n_valid=9800, seed=0):
+    """H-1 (``kernels.eval_heads``) against the eager heads
+    (``VoxurfF._eval_heads_eager``) on the same card tensors at the render
+    chunk's shapes: ``M`` head rows (the march's 16-a-ray budget), ``n_rays``
+    rays, ``n_valid`` live rows on three quarters of the rays, NaN in the
+    pad rows; fine widths, bf16 heads. Every sum within ``HEADS_GAP``, the
+    sums of rays without a live row exactly 0. Times both at ``n_valid``
+    and the kernel with every row live, against its bound (bf16 tensor
+    cores against bytes). Returns its kernel-table row (without
+    launches)."""
+    import types
+
+    import torch
+
+    from esrnerf_tpu_torch.models.voxurff import EVAL_SUMS
+    from esrnerf_tpu_torch.ops import kernels
+
+    _, model = build_fine(device, 32**3, mask_res=16)
+    params = model.init_params(torch.Generator(device=device).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    on = lambda a: torch.as_tensor(a, device=device)
+    live = 3 * n_rays // 4
+
+    def rows(nv):
+        ray_id = np.full(M, n_rays, np.int64)
+        ray_id[:nv] = rng.integers(0, live, nv)
+        step_id = np.zeros(M, np.int64)
+        step_id[:nv] = rng.integers(0, 432, nv)
+        w = np.zeros(M, np.float32)
+        w[:nv] = rng.uniform(0, 1, nv)
+        x = [rng.normal(size=(M, c)).astype(np.float32) for c in (79, 6, 6)]
+        x.append(rng.uniform(0, 1, (M, 3)).astype(np.float32))
+        for a in x:
+            a[nv:] = np.nan
+        m = types.SimpleNamespace(weights=on(w), ray_id=on(ray_id),
+                                  step_id=on(step_id), n_rays=n_rays,
+                                  n_valid=on(np.int32(nv)))
+        return m, [on(a) for a in x]
+
+    def fused(m, feat, off_gv, emo_gv, nrm):
+        return kernels.eval_heads(
+            off_gv, emo_gv, feat, nrm, m.weights, m.ray_id, m.step_id,
+            m.n_valid, m.n_rays, model.geo.stepdist, params["off_rgbnet"],
+            params["emo_rgbnet"], params["tonemapper"])
+
+    m, x = rows(n_valid)
+    got = fused(m, *x)
+    want = model._eval_heads_eager(params, m, *x)
+    gap = 0.0
+    for k, g, w in zip(EVAL_SUMS, got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"eval_heads {k}: non-finite")
+        if bool(g[live:].any()):
+            raise AssertionError(f"eval_heads {k}: a ray without a live row "
+                                 f"has a non-zero sum")
+        e = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if not e <= HEADS_GAP:
+            raise AssertionError(f"eval_heads {k}: gap/max {e:.3e} > "
+                                 f"{HEADS_GAP}")
+        gap = max(gap, e)
+    ms = time_ms(lambda: fused(m, *x), device)
+    plain_ms = time_ms(lambda: model._eval_heads_eager(params, m, *x), device)
+    m_all, x_all = rows(M)
+    all_live_ms = time_ms(lambda: fused(m_all, *x_all), device)
+
+    n_w = sum(v.numel() for k in ("off_rgbnet", "emo_rgbnet", "tonemapper")
+              for v in params[k].values())
+    mlp_flops = lambda k: 2 * sum(v.numel() for kk, v in params[k].items()
+                                  if kk.startswith("w"))
+    # both heads on each row, the tone-mapper on off, emo and on
+    flops_row = (mlp_flops("off_rgbnet") + mlp_flops("emo_rgbnet")
+                 + 3 * mlp_flops("tonemapper"))
+    # feat, both grid samples, nrm and the weight in f32; ray and step ids
+    bytes_row = 4 * (79 + 2 * 6 + 3 + 1) + 2 * 8
+
+    def bound(nv):
+        t_b = (nv * bytes_row + 4 * n_w + 4 * 22 * n_rays) / H100_BYTES_PER_S
+        t_o = nv * flops_row / H100_BF16_OPS_PER_S
+        return (t_b * 1e3, "bytes") if t_b >= t_o else (t_o * 1e3, "operations")
+
+    b, by = bound(n_valid)
+    b_all, by_all = bound(M)
+    r = {"name": "eval_heads", "route": "cuda",
+         "source": KERNEL_SOURCES["eval_heads"][0],
+         "replaces": KERNEL_SOURCES["eval_heads"][1], "launches": 0,
+         "max_rel_gap": gap, "rows": M, "live_rows": n_valid,
+         "n_rays": n_rays, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+         "bound_by": by, "all_live_ms": all_live_ms, "all_live_bound_ms": b_all,
+         "all_live_bound_by": by_all, "library_ms": None}
+    emit({"phase": "kernels", **r})
+    return r
 
 
 # --------------------------------------------------------- phases 4 and 5
@@ -2026,7 +2133,7 @@ def train_stage(device, work, wh=256, n_train=12, n_test=3,
                             "gather_weighted", "gather_raw")
                 if train_launches[k] == 0]
                + [f"eval {k}" for k in ("scan_fwd", "gather_weighted",
-                                        "gather_raw")
+                                        "gather_raw", "eval_heads")
                   if eval_launches[k] == 0])
     if missing and device.type == "cuda":
         raise AssertionError(f"kernels not launched by the trainer: {missing}")
@@ -3442,6 +3549,7 @@ def main() -> int:
 
     rows = check_kernels(device, N=N_RAYS, S=896, M1=3538944,
                          n_cells=NUM_VOXELS, K2=N_RAYS * 16, grid_res=256)
+    heads_row = check_eval_heads(device)
     sync(device)
 
     emit({"phase": "check", **check_small_step(device)})
@@ -3583,6 +3691,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="esr_smoke_") as work:
         tr = train_stage(device, work)
         tr["device"] = smi
+        heads_row["launches"] = tr["launches_test_nv"]["eval_heads"]
         emit({"phase": "trainer", **tr})
         torch.cuda.empty_cache()
         lt = lts_stage(device, work)
@@ -3622,7 +3731,7 @@ def main() -> int:
             for d in dtu_rows}
     torch.cuda.empty_cache()
 
-    emit({"kernels": rows})
+    emit({"kernels": rows + [heads_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

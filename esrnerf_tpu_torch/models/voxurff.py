@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from esrnerf_tpu_torch.models import mlp as mlpops
 from esrnerf_tpu_torch.models.voxurf_base import MaskCache, VoxurfGeometry
 from esrnerf_tpu_torch.ops import grid as gridops
+from esrnerf_tpu_torch.ops import kernels
 from esrnerf_tpu_torch.ops import tv as tvops
 from esrnerf_tpu_torch.utils import profiling
 from esrnerf_tpu_torch.utils.device import small_const
@@ -31,6 +32,9 @@ Params = Dict[str, object]
 
 # eval normals: camera-space y and z flip to the image convention
 NORMAL_FLIPPER = (1.0, -1.0, -1.0)
+# the eval forward's per-ray sums, in the fused heads kernel's order
+EVAL_SUMS = ("srgb/off_rgb", "lin/off_rgb", "srgb/on_rgb", "lin/on_rgb",
+             "srgb/emo_rgb", "lin/emo_rgb", "etc/normal", "etc/depth")
 
 
 class VoxurfF:
@@ -185,6 +189,39 @@ class VoxurfF:
         return F.softplus(mlpops.apply_mlp(
             params[f"{head}_rgbnet"], x, compute_dtype=self.mlp_dtype))
 
+    def _eval_heads(self, params, m, feat, off_gv, emo_gv, nrm):
+        """The eval heads and their per-ray sums, keyed by
+        :data:`EVAL_SUMS`: on a CUDA device one fused kernel over the
+        march's live rows (:func:`~esrnerf_tpu_torch.ops.kernels.eval_heads`,
+        which raises for heads it is not built for), on the CPU the eager
+        ops over every row. Counts ``eval.heads_fused`` or
+        ``eval.heads_eager``."""
+        if feat.is_cuda:
+            sums = kernels.eval_heads(
+                off_gv, emo_gv, feat, nrm, m.weights, m.ray_id, m.step_id,
+                m.n_valid, m.n_rays, self.geo.stepdist, params["off_rgbnet"],
+                params["emo_rgbnet"], params["tonemapper"], self.mlp_dtype)
+            profiling.count("eval.heads_fused")
+        else:
+            sums = self._eval_heads_eager(params, m, feat, off_gv, emo_gv,
+                                          nrm)
+            profiling.count("eval.heads_eager")
+        return dict(zip(EVAL_SUMS, sums))
+
+    def _eval_heads_eager(self, params, m, feat, off_gv, emo_gv, nrm):
+        """:meth:`_eval_heads` as PyTorch ops over every row: the CPU path,
+        and the reference the kernel is tested against."""
+        geo = self.geo
+        lin_off = self._radiance(params, "off", feat, off_gv)
+        lin_emo = self._radiance(params, "emo", feat, emo_gv)
+        lin_on = lin_off + lin_emo
+        off = self.apply_tonemapper(params, lin_off)
+        emo = self.apply_tonemapper(params, lin_emo)
+        on = self.apply_tonemapper(params, lin_on)
+        depth = m.step_id.to(torch.float32) * geo.stepdist
+        return [geo.segment_to_rays(m, v) for v in (
+            off, lin_off, on, lin_on, emo, lin_emo, nrm, depth)]
+
     def _march_gradient(self, sdf: torch.Tensor):
         """The SDF gradient grid the grad-variant march alpha takes, None
         for the interp variant."""
@@ -276,29 +313,10 @@ class VoxurfF:
             off_gv, emo_gv = geo.sample_grids_sorted(
                 (params["off_color"], params["emo_color"]), m.pts, m.n_valid
             )
-            lin_off = self._radiance(params, "off", feat, off_gv)
-            lin_emo = self._radiance(params, "emo", feat, emo_gv)
-            lin_on = lin_off + lin_emo
-            off = self.apply_tonemapper(params, lin_off)
-            emo = self.apply_tonemapper(params, lin_emo)
-            on = self.apply_tonemapper(params, lin_on)
-
-            out = {}
-            for key, v in [
-                ("srgb/off_rgb", off), ("lin/off_rgb", lin_off),
-                ("srgb/on_rgb", on), ("lin/on_rgb", lin_on),
-                ("srgb/emo_rgb", emo), ("lin/emo_rgb", lin_emo),
-                ("etc/normal", nrm),
-            ]:
-                out[key] = geo.segment_to_rays(m, v)
-
-            depth = geo.segment_to_rays(
-                m, m.step_id.to(torch.float32) * geo.stepdist)
-        disp = 1.0 / (depth + m.alphainv_last * geo.far)
+            out = self._eval_heads(params, m, feat, off_gv, emo_gv, nrm)
         is_off = int(em_mode) == 0
         out.update({
-            "etc/depth": depth,
-            "etc/disp": disp,
+            "etc/disp": 1.0 / (out["etc/depth"] + m.alphainv_last * geo.far),
             "etc/white_bg": m.alphainv_last[..., None],
             "srgb/rgb": out["srgb/off_rgb"] if is_off else out["srgb/on_rgb"],
             "lin/rgb": out["lin/off_rgb"] if is_off else out["lin/on_rgb"],

@@ -29,13 +29,15 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from esrnerf_tpu_torch.models import mlp as mlpops
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # library -> source file; each is built into its own .so
 SOURCES = {"scan": "scan.cu", "splat": "splat.cu", "gather": "gather.cu",
-           "gather_bench": "gather_bench.cu"}
+           "gather_bench": "gather_bench.cu", "heads": "heads.cu"}
 # host-code libraries (no CUDA), built by the host C++ compiler
 HOST_SOURCES = {"marching": "marching.cpp", "png_unfilter": "png_unfilter.cpp",
                 "piz": "piz.cpp"}
@@ -50,13 +52,14 @@ CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 launches: Dict[str, int] = {
     "scan_fwd": 0, "scan_bwd": 0, "splat": 0, "gather_weighted": 0,
     "gather_raw": 0, "gather_grid": 0, "gather_parts_dma": 0,
-    "gather_parts_build": 0, "gather_parts_full": 0,
+    "gather_parts_build": 0, "gather_parts_full": 0, "eval_heads": 0,
 }
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _LL_P = ctypes.POINTER(ctypes.c_longlong)
 _I_P = ctypes.POINTER(ctypes.c_int)
+_VP_P = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "scan": {
         "esr_scan_fwd": [_vp, _vp, _vp, _vp, _i, _i, _f, _i, _vp],
@@ -74,6 +77,9 @@ _SIGNATURES = {
     "gather_bench": {
         "esr_gather_grid": [_vp, _ll, _vp, _vp, _vp, _vp, _i, _vp, _vp],
         "esr_gather_parts": [_vp, _ll, _i, _i, _vp, _vp],
+    },
+    "heads": {
+        "esr_eval_heads": [_VP_P, _i, _i, _i, _i, _i, _f, _vp],
     },
 }
 # host libraries: function -> (argtypes, restype)
@@ -386,3 +392,80 @@ def gather_parts(tbl, mode: str, npiece: int):
         _stream(tbl)))
     launches[f"gather_parts_{mode}"] += 1
     return out
+
+
+# widths esr_eval_heads is built for: 192-wide heads of four layers on at
+# most 96 inputs, a 192-wide tone-mapper of two on 3 + 6 P <= 48, 3 outputs
+EVAL_HEADS_HIDDEN, EVAL_HEADS_MAX_IN, EVAL_HEADS_MAX_TM_IN = 192, 96, 48
+
+
+def _mlp_shapes(mlp) -> list:
+    return [(tuple(mlp[f"w{i}"].shape), tuple(mlp[f"b{i}"].shape))
+            for i in range(mlpops.n_layers(mlp))]
+
+
+def eval_heads_fit(off_rgbnet, emo_rgbnet, tonemapper, n_in: int) -> bool:
+    """Whether :func:`eval_heads` is built for these heads (``[in, out]``
+    weight dicts) on ``n_in`` head inputs."""
+    H = EVAL_HEADS_HIDDEN
+    head = [((n_in, H), (H,)), ((H, H), (H,)), ((H, H), (H,)),
+            ((H, 3), (3,))]
+    tm = _mlp_shapes(tonemapper)
+    tm_in = tm[0][0][0] if tm else 0
+    return (n_in <= EVAL_HEADS_MAX_IN
+            and _mlp_shapes(off_rgbnet) == head
+            and _mlp_shapes(emo_rgbnet) == head
+            and tm_in <= EVAL_HEADS_MAX_TM_IN and (tm_in - 3) % 6 == 0
+            and tm == [((tm_in, H), (H,)), ((H, 3), (3,))])
+
+
+def eval_heads(off_gv, emo_gv, feat, nrm, weights, ray_id, step_id, n_valid,
+               n_rays: int, stepdist: float, off_rgbnet, emo_rgbnet,
+               tonemapper, compute_dtype=torch.bfloat16):
+    """The fine eval heads and their per-ray sums in one pass over the rows
+    before ``n_valid`` (``csrc/heads.cu``): both radiance heads on ``[gv |
+    feat]``, the tone-mapper on off, emo and on, and the weighted sums by
+    ``ray_id``. Returns views of one zeroed buffer: ``(srgb_off, lin_off,
+    srgb_on, lin_on, srgb_emo, lin_emo, normal)`` ``[n_rays, 3]`` each and
+    the depth ``[n_rays]``. Raises for heads it is not built for: a
+    ``compute_dtype`` other than bf16, or widths :func:`eval_heads_fit`
+    refuses."""
+    mlps = (off_rgbnet, emo_rgbnet)
+    M, C_g = off_gv.shape
+    F = feat.shape[1]
+    if compute_dtype != torch.bfloat16 or not eval_heads_fit(
+            *mlps, tonemapper, C_g + F):
+        raise ValueError(
+            "eval_heads: built for bf16 heads of in -> 192 x 3 -> 3 (in <= "
+            f"{EVAL_HEADS_MAX_IN}) and a 3 + 6 P -> 192 -> 3 "
+            f"tone-mapper (3 + 6 P <= {EVAL_HEADS_MAX_TM_IN}); got "
+            f"{compute_dtype or torch.float32} heads of "
+            f"{_mlp_shapes(off_rgbnet)} on {C_g + F} inputs, tone-mapper "
+            f"{_mlp_shapes(tonemapper)}")
+    for t, what in ((off_gv, "off_gv"), (emo_gv, "emo_gv"), (feat, "feat"),
+                    (nrm, "nrm"), (weights, "weights")):
+        _require(t, torch.float32, f"eval_heads {what}")
+    for t, what in ((ray_id, "ray_id"), (step_id, "step_id")):
+        _require(t, torch.int64, f"eval_heads {what}")
+    if (emo_gv.shape != (M, C_g) or feat.shape != (M, F)
+            or nrm.shape != (M, 3) or weights.shape != (M,)
+            or ray_id.shape != (M,) or step_id.shape != (M,)):
+        raise ValueError("eval_heads: row counts or widths of the inputs "
+                         "differ")
+    params = [m[f"{k}{i}"] for m in mlps for k in "wb" for i in range(4)]
+    params += [tonemapper[k] for k in ("w0", "w1", "b0", "b1")]
+    for i, t in enumerate(params):
+        _require(t, torch.float32, f"eval_heads weight {i}")
+    N = int(n_rays)
+    out = torch.zeros((22 * N,), dtype=torch.float32, device=feat.device)
+    nv = _nv(n_valid, feat.device)
+    ts = (off_gv, emo_gv, feat, nrm, weights, ray_id, step_id, nv, *params,
+          out)
+    ptrs = (ctypes.c_void_p * len(ts))(*[_ptr(t) for t in ts])
+    P = (tonemapper["w0"].shape[0] - 3) // 6
+    so = lib("heads")
+    _check("eval_heads", so, so.esr_eval_heads(
+        ptrs, M, N, C_g, F, P, float(stepdist), _stream(feat)))
+    launches["eval_heads"] += 1
+    sums = [out[3 * N * i:3 * N * (i + 1)].view(N, 3) for i in range(7)]
+    return (*sums, out[21 * N:])

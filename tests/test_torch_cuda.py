@@ -439,3 +439,232 @@ def test_small_finetune_on_card_matches_cpu(dev):
         assert res[path]["max_grad_err_rel"] <= 1e-4
     for k in ("scan_fwd", "splat", "gather_weighted", "gather_raw"):
         assert kernels.launches[k] > n0[k], k
+
+
+# ------------------------------------------------------ the fused eval heads
+
+# the CPU tests' cuts of cfg/app/fine.yaml that the fused heads kernel is not
+# built for (32-wide f32 heads); without them the model has the fine widths
+_CPU_HEAD_CUTS = ("app.model.rgbnet_", "app.model.tonemap_",
+                  "system.compute_dtype")
+# largest gap of a fused per-ray sum to the eager one, over the eager sum's
+# largest magnitude: the two sum the same exact bf16 products in another
+# order, so an activation near a bf16 rounding boundary may round the other
+# way (one bf16 ulp) and move its row's outputs. Read on an H100 at 9,800
+# and 262,144 live rows: <= 7.5e-5 (the eager heads on the card against the
+# same on the CPU: <= 3.1e-5)
+HEADS_GAP = 3e-4
+
+
+def _fine_heads_model(dev):
+    from esrnerf_tpu_torch.config import load_cfg
+    from esrnerf_tpu_torch.models import voxurf_base as tvb
+    from esrnerf_tpu_torch.models.voxurff import VoxurfF
+    from test_torch_common import (NUM_VOXELS, OVERRIDES, REPO, S_VAL,
+                                   ball_density)
+
+    cfg = load_cfg("cfg/app/fine.yaml",
+                   [o for o in OVERRIDES if not o.startswith(_CPU_HEAD_CUTS)],
+                   root_dir=REPO)
+    mc = tvb.make_mask_cache(ball_density(), [-1, -1, -1], [1, 1, 1], 1e-6,
+                             1e-3, 3, device=dev)
+    model = VoxurfF(cfg, 0.5, 4.0, [-1, -1, -1], [1, 1, 1], mc, S_VAL,
+                    NUM_VOXELS)
+    return model, model.init_params(torch.Generator(device=dev).manual_seed(0))
+
+
+def _heads_rows(dev, M, n_rays, n_valid, seed, pad=np.nan):
+    """Random head rows, live before ``n_valid`` on the first three
+    quarters of the rays (the rest have no live row); the pad rows' inputs
+    are ``pad``, their ray id ``n_rays`` and weight 0, as the march's."""
+    import types
+
+    rng = np.random.default_rng(seed)
+    live = max(1, 3 * n_rays // 4)
+    ray_id = np.full(M, n_rays, np.int64)
+    ray_id[:n_valid] = rng.integers(0, live, n_valid)
+    step_id = np.zeros(M, np.int64)
+    step_id[:n_valid] = rng.integers(0, 432, n_valid)
+    w = np.zeros(M, np.float32)
+    w[:n_valid] = rng.uniform(0, 1, n_valid)
+    # feat, off_gv, emo_gv, nrm: the order of VoxurfF._eval_heads
+    x = [rng.normal(size=(M, c)).astype(np.float32) for c in (79, 6, 6)]
+    x.append(rng.uniform(0, 1, (M, 3)).astype(np.float32))
+    for a in x:
+        a[n_valid:] = pad
+    on = lambda a: torch.as_tensor(a, device=dev)
+    m = types.SimpleNamespace(weights=on(w), ray_id=on(ray_id),
+                              step_id=on(step_id), n_rays=n_rays,
+                              n_valid=on(np.int32(n_valid)))
+    return m, [on(a) for a in x], live
+
+
+def _heads_gap(got: dict, want: dict) -> dict:
+    return {k: float((got[k] - want[k]).abs().max())
+            / max(float(want[k].abs().max()), 1e-30) for k in want}
+
+
+@pytest.mark.parametrize("M,n_rays,n_valid", [
+    (4096, 256, 0), (4096, 256, 1), (4096, 256, 63), (4096, 256, 64),
+    (4096, 256, 65), (262144, 16384, 9800), (262144, 16384, 262144)])
+def test_fused_eval_heads_match_the_eager_heads(dev, M, n_rays, n_valid):
+    """The fused heads kernel against the eager heads on random rows and
+    heads of the fine widths, every output within ``HEADS_GAP``; the sums
+    of rays with no live row exactly 0; NaN inputs in the pad rows change
+    nothing (the kernel never reads them)."""
+    from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.utils import profiling
+
+    model, params = _fine_heads_model(dev)
+    m, x, live = _heads_rows(dev, M, n_rays, n_valid, seed=M + n_valid)
+    n0 = kernels.launches["eval_heads"]
+    profiling.reset()
+    got = model._eval_heads(params, m, *x)
+    assert kernels.launches["eval_heads"] == n0 + 1
+    assert profiling.snapshot()["counters"] == {"eval.heads_fused": 1}
+    want = dict(zip(got, model._eval_heads_eager(params, m, *x)))
+    assert {k: v.shape for k, v in got.items()} == {
+        k: v.shape for k, v in want.items()}
+    gap = _heads_gap(got, want)
+    assert max(gap.values()) <= HEADS_GAP, gap
+    for k, v in got.items():
+        assert not v[live:].any(), k
+        assert bool(torch.isfinite(v).all()), k
+    m2, x2, _ = _heads_rows(dev, M, n_rays, n_valid, seed=M + n_valid,
+                            pad=0.0)
+    gap_pad = _heads_gap(model._eval_heads(params, m2, *x2), got)
+    assert max(gap_pad.values()) <= 1e-6, gap_pad
+
+
+def test_fused_eval_forward_matches_the_eager_forward(dev):
+    """The fine eval forward on a 32^3 ball with heads of the fine widths,
+    fused against eager, every output within ``HEADS_GAP`` (the march and
+    the features are the same ops on both sides)."""
+    from esrnerf_tpu_torch.models.voxurff import EVAL_SUMS
+    from test_torch_common import S_VAL, rays
+
+    model, params = _fine_heads_model(dev)
+    X, Y, Z = model.geo.world_size
+    x, y, z = np.mgrid[-1:1:X * 1j, -1:1:Y * 1j, -1:1:Z * 1j]
+    r = np.sqrt(x**2 + y**2 + z**2)
+    params["sdf"] = torch.as_tensor((r - 0.5).astype(np.float32)[..., None],
+                                    device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for k in ("off_color", "emo_color"):
+        params[k] = torch.rand(params[k].shape, generator=g, device=dev)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in rays(512).items()}
+    args = (params, b["rays_o"], b["rays_d"], b["viewdirs"], 1,
+            torch.eye(3, device=dev), S_VAL)
+    fused = model.forward_evaluate(*args)
+    model._eval_heads = lambda *a: dict(zip(
+        EVAL_SUMS, model._eval_heads_eager(*a)))
+    eager = model.forward_evaluate(*args)
+    assert list(fused) == list(eager)
+    assert float(eager["lin/on_rgb"].abs().max()) > 0
+    gap = _heads_gap(fused, eager)
+    assert max(gap.values()) <= HEADS_GAP, gap
+
+
+# largest gap of the card's fused eval forward to the JAX package's on the
+# CPU, per output key over the JAX output's largest magnitude, at the fine
+# widths with bf16 heads: bf16 roundings of activations that f32 sums in
+# another order move across a rounding boundary. Read on an H100: <= 7.2e-5
+# (the port's eager heads on the CPU against JAX: <= 1.2e-4)
+JAX_EVAL_GAP = 3e-4
+
+
+@pytest.mark.parametrize("em", [0, 1])
+def test_fused_eval_forward_matches_the_jax_forward(dev, em):
+    """The fine eval forward at the fine widths with bf16 heads: the port on
+    the card (the fused heads kernel, counted as ``eval.heads_fused``)
+    against ``esrnerf_tpu``'s ``VoxurfF.forward_evaluate`` run by JAX on
+    the CPU, from the same parameters and rays (the set-up of
+    ``tests/test_torch_fine_trainer.py::test_forward_evaluate_matches_
+    reference`` without its head cuts). Every output key within
+    ``JAX_EVAL_GAP`` of the JAX output's largest magnitude, the same keys
+    and overflow 0 on both sides."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    assert jax.default_backend() == "cpu"
+    import jax.numpy as jnp
+
+    from esrnerf_tpu.config import load_cfg as jload
+    from esrnerf_tpu.models import voxurf_base as jvb
+    from esrnerf_tpu.models.voxurff import VoxurfF as JVoxurfF
+    from esrnerf_tpu_torch.config import load_cfg as tload
+    from esrnerf_tpu_torch.models import voxurf_base as tvb
+    from esrnerf_tpu_torch.models.voxurff import VoxurfF as TVoxurfF
+    from esrnerf_tpu_torch.utils import profiling
+    from esrnerf_tpu_torch.utils.convert import params_from_jax
+    from test_torch_common import (NUM_VOXELS, OVERRIDES, REPO, S_VAL,
+                                   ball_density, rays)
+
+    ov = [o for o in OVERRIDES if not o.startswith(_CPU_HEAD_CUTS)]
+    jcfg = jload("cfg/app/fine.yaml", ov, root_dir=REPO)
+    tcfg = tload("cfg/app/fine.yaml", ov, root_dir=REPO)
+    dens = ball_density()
+    box = ([-1, -1, -1], [1, 1, 1])
+    jm = JVoxurfF(jcfg, 0.5, 4.0, *box,
+                  jvb.make_mask_cache(dens, *box, 1e-6, 1e-3, 3), S_VAL,
+                  NUM_VOXELS)
+    tm = TVoxurfF(tcfg, 0.5, 4.0, *box,
+                  tvb.make_mask_cache(dens, *box, 1e-6, 1e-3, 3, device=dev),
+                  S_VAL, NUM_VOXELS)
+    params = jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+    assert params["off_rgbnet"]["w0"].shape == (85, 192)
+    rng = np.random.default_rng(7)
+    X, Y, Z = jm.geo.world_size
+    x, y, z = np.mgrid[-1:1:X * 1j, -1:1:Y * 1j, -1:1:Z * 1j]
+    r = np.sqrt(x**2 + y**2 + z**2)
+    params["sdf"] = (r - 0.5 + rng.normal(scale=0.03, size=r.shape)
+                     ).astype(np.float32)[..., None]
+    for g in ("off_color", "emo_color"):
+        params[g] = rng.normal(scale=0.3, size=params[g].shape).astype(
+            np.float32)
+    b = rays(512)
+    rot = np.asarray([[0.0, 0.6, 0.8], [1.0, 0.0, 0.0], [0.0, 0.8, -0.6]],
+                     np.float32)
+    oj = jm.forward_evaluate(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(b["rays_o"]),
+        jnp.asarray(b["rays_d"]), jnp.asarray(b["viewdirs"]), jnp.int32(em),
+        jnp.asarray(rot), jnp.float32(S_VAL))
+    on = lambda a: torch.as_tensor(a, device=dev)
+    profiling.reset()
+    ot = tm.forward_evaluate(
+        params_from_jax(params, device=dev), on(b["rays_o"]), on(b["rays_d"]),
+        on(b["viewdirs"]), em, on(rot), S_VAL)
+    assert profiling.snapshot()["counters"] == {"eval.heads_fused": 1}
+    assert ot.keys() == oj.keys()
+    assert float(ot["etc/overflow"]) == float(oj["etc/overflow"]) == 0.0
+    assert float(np.abs(np.asarray(oj["lin/on_rgb"])).max()) > 0
+    gap = {k: float(np.abs(ot[k].cpu().numpy() - np.asarray(oj[k])).max())
+           / max(float(np.abs(np.asarray(oj[k])).max()), 1e-30) for k in oj}
+    print("fused eval forward against JAX, gap / max:", gap)
+    assert max(gap.values()) <= JAX_EVAL_GAP, gap
+
+
+def test_eval_heads_on_the_card_refuse_heads_the_kernel_lacks(dev):
+    """On the card the eval forward runs the fused heads or raises: the CPU
+    tests' 32-wide f32 heads raise, they never fall back to the eager
+    heads."""
+    from esrnerf_tpu_torch.config import load_cfg
+    from esrnerf_tpu_torch.models import voxurf_base as tvb
+    from esrnerf_tpu_torch.models.voxurff import VoxurfF
+    from esrnerf_tpu_torch.utils import profiling
+    from test_torch_common import (NUM_VOXELS, OVERRIDES, REPO, S_VAL,
+                                   ball_density, rays)
+
+    cfg = load_cfg("cfg/app/fine.yaml", OVERRIDES, root_dir=REPO)
+    mc = tvb.make_mask_cache(ball_density(), [-1, -1, -1], [1, 1, 1], 1e-6,
+                             1e-3, 3, device=dev)
+    model = VoxurfF(cfg, 0.5, 4.0, [-1, -1, -1], [1, 1, 1], mc, S_VAL,
+                    NUM_VOXELS)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    b = {k: torch.as_tensor(v, device=dev) for k, v in rays(64).items()}
+    profiling.reset()
+    with pytest.raises(ValueError, match="built for"):
+        model.forward_evaluate(params, b["rays_o"], b["rays_d"],
+                               b["viewdirs"], 0, torch.eye(3, device=dev),
+                               S_VAL)
+    assert "eval.heads_eager" not in profiling.snapshot()["counters"]

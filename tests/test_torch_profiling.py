@@ -219,6 +219,54 @@ def test_fine_eval_forward_shows_features_heads_and_the_march(tiny_fine,
     assert march[1] <= feat[0] and feat[1] <= heads[0]
 
 
+def test_fine_eval_heads_take_the_eager_path_on_the_cpu(tiny_fine):
+    """On the CPU the eval heads run as eager ops, count
+    ``eval.heads_eager`` once a call, and keep the outputs' keys, order and
+    shapes."""
+    _, model, params, b = tiny_fine
+    N = b["rays_o"].shape[0]
+    out = model.forward_evaluate(params, b["rays_o"], b["rays_d"],
+                                 b["viewdirs"], 0, torch.eye(3), S_VAL)
+    assert profiling.snapshot()["counters"] == {"eval.heads_eager": 1}
+    assert list(out) == [
+        "srgb/off_rgb", "lin/off_rgb", "srgb/on_rgb", "lin/on_rgb",
+        "srgb/emo_rgb", "lin/emo_rgb", "etc/normal", "etc/depth",
+        "etc/disp", "etc/white_bg", "srgb/rgb", "lin/rgb", "etc/overflow"]
+    for k in list(out)[:7] + ["srgb/rgb", "lin/rgb"]:
+        assert out[k].shape == (N, 3), k
+    assert out["etc/depth"].shape == out["etc/disp"].shape == (N,)
+    assert out["etc/white_bg"].shape == (N, 1)
+    assert out["srgb/rgb"] is out["srgb/off_rgb"]
+
+
+def test_fused_eval_heads_refuse_other_heads_and_cpu_tensors():
+    """The fused heads kernel is built for the fine configuration's bf16
+    heads (85 -> 192 x 3 -> 3, tone-mapper 33 -> 192 -> 3): its launcher
+    refuses the CPU tests' 32-wide heads, f32 heads and CPU tensors, in
+    that order (a CUDA caller gets the kernel or an error, never the eager
+    heads)."""
+    from esrnerf_tpu_torch.models import mlp as mlpops
+    from esrnerf_tpu_torch.ops import kernels
+
+    g = torch.Generator().manual_seed(0)
+    head = mlpops.init_mlp(g, [85, 192, 192, 192, 3])
+    tm = mlpops.init_mlp(g, [33, 192, 3])
+    assert kernels.eval_heads_fit(head, head, tm, 85)
+    assert not kernels.eval_heads_fit(head, head, tm, 84)
+    assert not kernels.eval_heads_fit(
+        head, head, mlpops.init_mlp(g, [34, 192, 3]), 85)
+    small = mlpops.init_mlp(g, [85, 32, 3])
+    M, z = 4, torch.zeros
+    rows = (z(M, 6), z(M, 6), z(M, 79), z(M, 3), z(M),
+            z(M, dtype=torch.int64), z(M, dtype=torch.int64), None, 2, 0.5)
+    with pytest.raises(ValueError, match="built for"):
+        kernels.eval_heads(*rows, small, small, tm)
+    with pytest.raises(ValueError, match="float32 heads"):
+        kernels.eval_heads(*rows, head, head, tm, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.eval_heads(*rows, head, head, tm)
+
+
 class _Geo:
     def __init__(self):
         self.points_per_ray, self.points_per_ray_masked = 4, 16
