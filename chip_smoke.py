@@ -1110,6 +1110,7 @@ def train_lts_full_width(device, num_voxels, n_rays, warmup=2, timed=10):
 
     from esrnerf_tpu_torch.apps.lts import build_lts_train_step
     from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.ops.keyed import DrawKey
     from esrnerf_tpu_torch.optim import Adam
 
     t0 = time.perf_counter()
@@ -1119,7 +1120,6 @@ def train_lts_full_width(device, num_voxels, n_rays, warmup=2, timed=10):
     state = opt.init(params)
     step = build_lts_train_step(model, opt, cfg, device=device)
     batches = [make_lts_batch(i, n_rays, device) for i in range(4)]
-    gen = torch.Generator(device=device).manual_seed(1)
     lrs = {k: 1.0 for k in params}
     sync(device)
     setup_s = time.perf_counter() - t0
@@ -1127,7 +1127,7 @@ def train_lts_full_width(device, num_voxels, n_rays, warmup=2, timed=10):
     def run(i):
         nonlocal params, state
         params, state, aux = step(params, state, batches[i % 4], LTS_S_VAL,
-                                  lrs, *LTS_TV.values(), generator=gen)
+                                  lrs, *LTS_TV.values(), key=DrawKey(1, i))
         return aux
 
     # the first warm-up step is captured for the launch replay: from the
@@ -1525,6 +1525,7 @@ def train_pdra_full_width(device, num_voxels, batch, warmup=2, timed=10,
 
     from esrnerf_tpu_torch.apps.pdra import build_pdra_train_step
     from esrnerf_tpu_torch.ops import kernels
+    from esrnerf_tpu_torch.ops.keyed import DrawKey
     from esrnerf_tpu_torch.optim import Adam
 
     t0 = time.perf_counter()
@@ -1534,7 +1535,6 @@ def train_pdra_full_width(device, num_voxels, batch, warmup=2, timed=10,
     state = opt.init(params)
     step = build_pdra_train_step(model, opt, cfg, device=device)
     batches = [make_pdra_batch(i, batch, device) for i in range(4)]
-    gen = torch.Generator(device=device).manual_seed(1)
     lrs = {k: 1.0 for k in params}
     sync(device)
     setup_s = time.perf_counter() - t0
@@ -1542,7 +1542,7 @@ def train_pdra_full_width(device, num_voxels, batch, warmup=2, timed=10,
     def run(i):
         nonlocal params, state
         params, state, aux = step(params, state, batches[i % 4], LTS_S_VAL,
-                                  lrs, *LTS_TV.values(), generator=gen)
+                                  lrs, *LTS_TV.values(), key=DrawKey(1, i))
         return aux
 
     # the first step is captured (every cotangent alive, as in the LTS

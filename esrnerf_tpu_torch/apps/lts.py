@@ -12,10 +12,11 @@ per-group Adam. The trainer (:class:`LTS`): a warm start of the
 overlapping parameter groups from the fine stage's checkpoint (optionally
 the BRDF grid from the off colour grid), the two-pool
 :class:`~esrnerf_tpu_torch.data.sampler.RayGroupManager` seeded with the
-fine stage's ray indices, a fixed NeuS sharpness, checkpoints that the JAX
-package reads (and that it writes) with resume, and an eval that adds the
-envmap images and, with ``app.eval.render_pbr``, the chunked PBR
-decomposition.
+fine stage's ray indices, a fixed NeuS sharpness, the forward's draws keyed
+by the run's seed and the global step (:meth:`LTS.draw_key`), checkpoints
+that the JAX package reads (and that it writes) with resume, and an eval
+that adds the envmap images and, with ``app.eval.render_pbr``, the chunked
+PBR decomposition.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from esrnerf_tpu_torch.models.voxurf_base import (fold_counters,
                                                   march_fractions)
 from esrnerf_tpu_torch.ops import pbr as pbrops
 from esrnerf_tpu_torch.ops.image import apply_gamma_curve
+from esrnerf_tpu_torch.ops.keyed import DrawKey
 from esrnerf_tpu_torch.optim import Adam, CosineLR
 from esrnerf_tpu_torch.parallel.mesh import ParamLayout, ShardHelpers
 from esrnerf_tpu_torch.utils import checkpoint as ckpt_io
@@ -59,7 +61,7 @@ def masked_mse(a, b, valid, gsum: Callable = lambda x: x):
 def lts_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
              generator, *, w_ent: float, w_lin: float, w_lts: float,
              w_nsm: float, white_bg: float, normal_eps: float,
-             emit_eps: float, sh: ShardHelpers = ShardHelpers()):
+             emit_eps: float, sh: ShardHelpers = ShardHelpers(), key=None):
     """The LTS loss, each term folded over the ranks by ``sh``. Returns
     ``(loss, (mse, lin_mse, off_mse, emo_mse, counts, counts_2nd,
     counters))`` with the rank's counts of both marches and its own five
@@ -67,7 +69,7 @@ def lts_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], batch["uncert_masks"], s_val, normal_eps,
-        emit_eps, draws=draws, generator=generator, sh=sh,
+        emit_eps, draws=draws, generator=generator, sh=sh, key=key,
     )
     wbg = res["etc/white_bg"] * white_bg
     srgb = torch.clamp(res["srgb/rgb"] + wbg, 0.0, 1.0)
@@ -117,13 +119,15 @@ def build_lts_train_step(model, opt, cfg, device="cuda",
 
     Returns ``train_step(params, opt_state, batch, s_val, lr_scales,
     tv_flag, smooth_grad_tv, sdf_tv_w, tv_dense, draws=None,
-    generator=None) -> (params, opt_state, aux)`` with ``aux = (mse,
-    lin_mse, off_mse, emo_mse, overflow, k1_frac, k2_frac, k1_frac_2nd,
-    k2_frac_2nd)`` on the device. ``batch`` holds ``rays_o, rays_d,
-    viewdirs, em_modes, uncert_masks, rgbs``; the forward's randomness is
-    ``draws`` (an :class:`~esrnerf_tpu_torch.models.esrnerf.LTSDraws`) or,
-    if None, draws from ``generator``. The phases run inside the ranges
-    ``lts/{loss,backward,sdf_tv_grad,adam}`` and the forward's own
+    generator=None, key=None) -> (params, opt_state, aux)`` with ``aux =
+    (mse, lin_mse, off_mse, emo_mse, overflow, k1_frac, k2_frac,
+    k1_frac_2nd, k2_frac_2nd)`` on the device. ``batch`` holds ``rays_o,
+    rays_d, viewdirs, em_modes, uncert_masks, rgbs``; the forward's
+    randomness is ``draws`` (an :class:`~esrnerf_tpu_torch.models.esrnerf.
+    LTSDraws`) or, if None, keyed by ``key`` (a :class:`~esrnerf_tpu_torch.
+    ops.keyed.DrawKey`; the trainer's is the run's seed and the global
+    step) or by the key that ``generator`` names. The phases run inside
+    the ranges ``lts/{loss,backward,sdf_tv_grad,adam}`` and the forward's own
     ``lts/{march,features,heads,brdf,lts,march_2nd}``. TF32 is switched off.
     """
     dev = resolve_device(device)
@@ -143,13 +147,13 @@ def build_lts_train_step(model, opt, cfg, device="cuda",
 
     def train_step(params, opt_state, batch, s_val, lr_scales, tv_flag,
                    smooth_grad_tv, sdf_tv_w, tv_dense, draws=None,
-                   generator=None):
+                   generator=None, key=None):
         whole = {}
 
         def loss_fn(p):
             whole["sdf"] = p["sdf"].detach()  # gathered under fsdp
             return lts_loss(model, p, batch, s_val, tv_flag, smooth_grad_tv,
-                            draws, generator, sh=sh, **kw)
+                            draws, generator, sh=sh, key=key, **kw)
 
         aux, grads = loss_and_grads(loss_fn, params, "lts", sh, layout)
         with torch.no_grad(), profiling.span("lts/sdf_tv_grad"):
@@ -287,10 +291,6 @@ class LTS(Fine):
     def learn(self) -> None:
         self.place_params()
         step_fn = self._train_step()
-        # the forward's draws: a stream of its own for a run resumed at a
-        # step, and (shard_map) for each rank
-        gen = self.shard_helpers().fold_generator(
-            self.device, self.cfg.system["seed"], self.global_step)
         ckpt_dir = self.ckpt_dir()
         ckpt_path = os.path.join(ckpt_dir, "last.ckpt")
         logger = self.get_logger()
@@ -318,7 +318,8 @@ class LTS(Fine):
                 float(self.tvs["smooth_grad"]),
                 float(self.weight_tv_density * self.tvs["sdf"]
                       / self.train_bs),
-                self.global_step < self.tv_dense_before, generator=gen)
+                self.global_step < self.tv_dense_before,
+                key=self.draw_key())
             mse, lin_mse, off_l, emo_l, ovf, k1f, k2f, k1f2, k2f2 = aux[:9]
             n_since += 1
 
@@ -379,6 +380,13 @@ class LTS(Fine):
 
     def on_step_begin(self) -> None:
         """Hook for the PDRA stage's periodic ray-group updates."""
+
+    def draw_key(self) -> DrawKey:
+        """The key of the current step's draws: the run's seed and the
+        global step, so a run resumed at a step draws what an unbroken run
+        draws there, on any world size (each rank keys its rows by their
+        rays' places in the global batch)."""
+        return DrawKey(int(self.cfg.system["seed"]), int(self.global_step))
 
     @gathers_params(state=True)
     def save(self, path: str) -> None:

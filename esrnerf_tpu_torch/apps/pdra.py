@@ -65,7 +65,8 @@ def pdra_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
               generator, *, w_ent: float, w_lin: float, w_lts: float,
               w_lts_l: float, w_lts_r: float, w_nsm: float, w_esm: float,
               w_esupp: float, white_bg: float, normal_eps: float,
-              emit_eps: float, sh: ShardHelpers = ShardHelpers()):
+              emit_eps: float, sh: ShardHelpers = ShardHelpers(),
+              key=None):
     """The PDRA loss, each term folded over the ranks by ``sh``. Returns
     ``(loss, (mse, lin_mse, off_l1, emo_l1, counts, counts_2nd, counters,
     emo_r1, emit_supp, emit_smooth))``: the LTS loss's aux, then the other
@@ -73,7 +74,7 @@ def pdra_loss(model, params, batch, s_val, tv_flag, smooth_grad_tv, draws,
     res = model.forward_training(
         params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
         batch["em_modes"], batch["uncert_masks"], s_val, normal_eps,
-        emit_eps, draws=draws, generator=generator, sh=sh,
+        emit_eps, draws=draws, generator=generator, sh=sh, key=key,
     )
     wbg = res["etc/white_bg"] * white_bg
     srgb = torch.clamp(res["srgb/rgb"] + wbg, 0.0, 1.0)
@@ -156,13 +157,13 @@ def build_pdra_train_step(model, opt, cfg, device="cuda",
 
     def train_step(params, opt_state, batch, s_val, lr_scales, tv_flag,
                    smooth_grad_tv, sdf_tv_w, tv_dense, draws=None,
-                   generator=None):
+                   generator=None, key=None):
         whole = {}
 
         def loss_fn(p):
             whole["sdf"] = p["sdf"].detach()  # gathered under fsdp
             return pdra_loss(model, p, batch, s_val, tv_flag, smooth_grad_tv,
-                             draws, generator, sh=sh, **kw)
+                             draws, generator, sh=sh, key=key, **kw)
 
         aux, grads = loss_and_grads(loss_fn, params, "pdra", sh, layout)
         with torch.no_grad(), profiling.span("pdra/sdf_tv_grad"):

@@ -11,19 +11,32 @@ march and composed with the Disney BRDF into the targets ``off_hat`` and
 The secondary fan-out (points x directions) is one batched march with its
 own budgets, the same ``[N, S] -> K1 -> K2`` pipeline as the primary march.
 The reference's random choice of up to ``num_ltspts`` surface points is a
-fixed-size selection with a validity mask. Randomness comes in as explicit
-tensors (:class:`LTSDraws`, :class:`FinetuneDraws`), so a test can feed
-the JAX package's draws.
+fixed-size selection with a validity mask: the points of the lowest
+uniform scores among the march's live rows.
+
+The training forward's randomness is keyed (:mod:`~esrnerf_tpu_torch.ops.
+keyed`): a head row's score and its normal and emission perturbations are
+a function of the step's :class:`~esrnerf_tpu_torch.ops.keyed.DrawKey`,
+the row's ray's place in the step's global batch and its sample's index
+along the ray; a chosen point's scattering normals of its own (ray,
+sample) and the secondary ray's index. Ties of the score go to the lower
+(ray, sample). So the draws do not depend on the march's cell-sorted row
+order, a sample that flips out of the live rows changes at most its own
+candidacy, and a rank of a data-parallel world (its rays a block of the
+global batch at the rank's offset) draws world 1's numbers for its rows.
+Explicit draws (:class:`LTSDraws`, :class:`FinetuneDraws`) keep their row
+meaning, so a test can feed the JAX package's draws.
 
 On a world of ranks under ``gspmd`` (a forward given the ranks' helpers
 ``sh``), each rank marches its block of rays and the randomness is world
-1's: the draws are drawn at world 1's shapes and each rank takes the rows
-of its own head rows' places in world 1's cell-sorted order
-(:meth:`~esrnerf_tpu_torch.parallel.mesh.ShardHelpers.global_positions`),
-the surface points are world 1's lowest scores over all ranks
-(:meth:`~esrnerf_tpu_torch.parallel.mesh.ShardHelpers.select_lowest`), and
-each chosen point's scattering draw is its place among them. A rank's
-secondary march is sized for all ``num_ltspts`` points, as world 1's.
+1's: keyed draws by the global ray index, or explicit draws at world 1's
+shapes of which each rank takes the rows of its own head rows' places in
+world 1's cell-sorted order (:meth:`~esrnerf_tpu_torch.parallel.mesh.
+ShardHelpers.global_positions`). The surface points are world 1's lowest
+scores over all ranks (:meth:`~esrnerf_tpu_torch.parallel.mesh.
+ShardHelpers.select_lowest`); an explicit scattering draw goes by each
+chosen point's place among them. A rank's secondary march is sized for
+all ``num_ltspts`` points, as world 1's.
 
 The PDRA stage's pieces: the per-ray emission and expected surface point
 probes (:meth:`ESRNeRF.eval_emit`, :meth:`ESRNeRF.eval_esp`) and the
@@ -42,6 +55,7 @@ from esrnerf_tpu_torch.models import mlp as mlpops
 from esrnerf_tpu_torch.models.voxurf_base import _linspace, rebudget_counts
 from esrnerf_tpu_torch.models.voxurff import NORMAL_FLIPPER, VoxurfF
 from esrnerf_tpu_torch.ops import grid as gridops
+from esrnerf_tpu_torch.ops import keyed
 from esrnerf_tpu_torch.ops import pbr as pbrops
 from esrnerf_tpu_torch.ops.image import hsv_to_rgb, rgb_to_hsv
 from esrnerf_tpu_torch.utils import profiling
@@ -52,7 +66,8 @@ Params = Dict[str, object]
 
 class LTSDraws(NamedTuple):
     """The random draws of one training forward, in the JAX package's
-    order (``jax.random.split(rng, 4)``)."""
+    order (``jax.random.split(rng, 4)``), by head row of the march's
+    cell-sorted order (and the chosen points' places)."""
 
     select: torch.Tensor      # [K2] uniform scores of the point selection
     scatter: torch.Tensor     # [P, n2 + 1, 3] normals of the scattering
@@ -136,8 +151,10 @@ class ESRNeRF(VoxurfF):
         return params
 
     def training_draws(self, generator: torch.Generator, k2: int) -> LTSDraws:
-        """The draws of :meth:`forward_training` for a primary march of
-        ``k2`` head rows, on ``generator``'s device."""
+        """Explicit row-ordered draws for :meth:`forward_training` of a
+        primary march of ``k2`` head rows, from ``generator``'s stream on
+        its device (the JAX package's draws in shape; the trainers key
+        theirs instead)."""
         g, gd = generator, generator.device
         return LTSDraws(
             torch.rand((k2,), generator=g, device=gd),
@@ -157,6 +174,57 @@ class ESRNeRF(VoxurfF):
             pbrops.scattering_draws(g, (self.n_lts_points,),
                                     self.num_2ndrays + 1),
         )
+
+    # ----------------------------------------------------------- keyed draws
+
+    # a head row's lanes: its selection score, then the normal and the
+    # emission perturbation's three normals each (two lanes a normal); a
+    # chosen point's scattering normals from SCATTER_LANE on
+    ROW_LANES = 13
+    SCATTER_LANE = 16
+
+    def keyed_rows(self, key: keyed.DrawKey, m, sh=None):
+        """The keyed draws of the march ``m``'s head rows: ``(draws, h,
+        pos)``, ``draws`` an :class:`LTSDraws` without its scattering
+        part, ``h`` each row's hash state and ``pos`` its place in the
+        global (ray, sample) order, the tie-break of the scores (pad rows
+        after every real row, each its own place). A rank's rays are the
+        block of the global batch at ``rank x`` its ray count."""
+        rank, world = (sh.rank, sh.n) if sh is not None else (0, 1)
+        N, K = m.n_rays, m.pad.shape[0]
+        ray = m.ray_id + rank * N
+        h = keyed.row_hash(key, ray, m.step_id)
+        lanes = keyed.lanes(h, self.ROW_LANES)
+        eps = keyed.normal(lanes[:, 1:])
+        stride = self.geo.n_samples + self.geo.phase1_block  # > any step
+        rows = torch.arange(K, dtype=torch.int64, device=h.device)
+        pos = torch.where(m.pad, N * world * stride + rank * K + rows,
+                          ray * stride + m.step_id)
+        return (LTSDraws(keyed.uniform(lanes[:, 0]), None, eps[:, :3],
+                         eps[:, 3:]), h, pos)
+
+    def keyed_scatter(self, h: torch.Tensor) -> Optional[torch.Tensor]:
+        """``[P, n2 + 1, 3]`` scattering normals of chosen points of hash
+        states ``h [P]``; None with Fibonacci sampling."""
+        if self.ray_sampling in ("fib", "fibo", "fibonacci"):
+            return None
+        n = self.num_2ndrays + 1
+        z = keyed.normal(keyed.lanes(h, 6 * n, self.SCATTER_LANE))
+        return z.reshape(h.shape[0], n, 3)
+
+    @staticmethod
+    def select_keyed(scores: torch.Tensor, pos: torch.Tensor,
+                     pad: torch.Tensor, P: int):
+        """The P lowest keyed ``scores`` (24-bit uniforms) among the
+        non-``pad`` rows, ties to the lower global place ``pos``: the
+        chosen rows ascending (so pads, chosen only where fewer than P
+        rows are real, stay at the tail) and whether each is real."""
+        bits = (scores * float(1 << 24)).to(torch.int64)
+        rows = torch.arange(pos.shape[0], dtype=torch.int64,
+                            device=pos.device)
+        order = torch.where(pad, (1 << 62) + rows, (bits << 36) + pos)
+        sel, _ = torch.sort(torch.argsort(order)[:P])
+        return sel, ~pad.index_select(0, sel)
 
     # --------------------------------------------------------------- helpers
 
@@ -379,33 +447,55 @@ class ESRNeRF(VoxurfF):
         self, params: Params, rays_o, rays_d, viewdirs, em_modes, uncert_masks,
         s_val, normal_eps, emit_eps, draws: Optional[LTSDraws] = None,
         generator: Optional[torch.Generator] = None, sh=None,
+        key: Optional[keyed.DrawKey] = None,
     ) -> Dict[str, torch.Tensor]:
-        """The LTS training forward. ``draws`` (or, if None, draws from
-        ``generator``) supplies the randomness; the phases run inside the
-        ``lts/{march,features,heads,brdf,lts,march_2nd}`` ranges. With the
+        """The LTS training forward. The randomness: explicit ``draws``
+        by row, else draws keyed by ``key`` (or by the key that
+        ``generator`` names) and each row's ray and sample (the module's
+        docstring); the draw work runs in the range ``lts/draws`` and
+        counts ``lts.draws_given`` or ``lts.draws_keyed``. The phases run
+        inside the ``lts/{march,features,heads,brdf,lts,march_2nd}``
+        ranges; the march, the features, the heads, the BRDF heads and the
+        light transport segment mark their outputs for the profiled
+        backward's ranges ``lts/bwd_{march,features,heads,brdf,segment}``
+        (:func:`~esrnerf_tpu_torch.utils.profiling.bwd_mark`). With the
         ranks' helpers ``sh`` under ``gspmd`` the draws are world 1's (the
         module's docstring). ``etc/counts`` and ``etc/counts_2nd`` are both
-        marches' counts, which a data-parallel step folds over the ranks."""
+        marches' counts, which a data-parallel step folds over the
+        ranks."""
         geo = self.geo
         glob = sh is not None and sh.global_rows
         with profiling.span("lts/march"):
+            sdf = profiling.bwd_mark(None, params["sdf"])
             m = geo.march(
-                params["sdf"], rays_o, rays_d, viewdirs, s_val,
+                sdf, rays_o, rays_d, viewdirs, s_val,
                 self.fastcolor_thres, self.neus_alpha, style="fine",
             )
-        rows_w1 = m.pts.shape[0] * (sh.n if glob else 1)
-        if draws is None:
-            draws = self.training_draws(generator, rows_w1)
-        if glob:  # the draws of this rank's rows, by their world-1 places
-            pos = sh.global_positions(m.key)
-            draws = LTSDraws(*(d if i == 1 else d.index_select(0, pos)
-                               for i, d in enumerate(draws)))
+            w, a_last, m_sdf = profiling.bwd_mark(
+                "march", m.weights, m.alphainv_last, m.sdf)
+            m = m._replace(weights=w, alphainv_last=a_last, sdf=m_sdf)
+        with profiling.span("lts/draws"):
+            h_rows = None
+            if draws is not None:
+                profiling.count("lts.draws_given")
+                if glob:  # the draws of this rank's rows, by world-1 place
+                    pos = sh.global_positions(m.key)
+                    draws = LTSDraws(*(d if i == 1 else d.index_select(0, pos)
+                                       for i, d in enumerate(draws)))
+            else:
+                profiling.count("lts.draws_keyed")
+                if key is None:  # a generator names its seed's key; its
+                    # stream is not drawn from
+                    key = keyed.DrawKey(generator.initial_seed(), 0)
+                draws, h_rows, pos = self.keyed_rows(key, m, sh)
         rid = torch.clamp(m.ray_id, max=m.n_rays - 1)
         with profiling.span("lts/features"):
             _, exp_grad = self.sample_sdf_expgrad(params["sdf"], m.pts)
             taps = self._sdf_taps(params, m.pts, m.n_valid)
             feat = self._features(params, m.pts, viewdirs.index_select(0, rid),
                                   m.sdf, taps=taps)
+            feat, exp_grad, *taps = profiling.bwd_mark(
+                "features", feat, exp_grad, *taps)
         on_mask = ((em_modes.index_select(0, rid) == 1) & ~m.pad)[:, None]
 
         with profiling.span("lts/heads"):
@@ -418,13 +508,15 @@ class ESRNeRF(VoxurfF):
             # on rays: emo + off, off not detached (unlike VoxurfF)
             lin_rgb = torch.where(on_mask, emo + off, off)
             rgb = self.apply_tonemapper(params, lin_rgb)
-            rgb_m = geo.segment_to_rays(m, rgb)
-            lin_m = geo.segment_to_rays(m, lin_rgb)
+            rgb_m, lin_m = profiling.bwd_mark(
+                "heads", geo.segment_to_rays(m, rgb),
+                geo.segment_to_rays(m, lin_rgb))
 
         with profiling.span("lts/brdf"):
             brdf_feat = self._brdf_feat(params, m.pts, m.sdf, taps=taps)
-            basecolor, roughness, metallic, emit = self._brdf_heads(
-                params, m.pts, brdf_feat, grid_vals=(brdf_gv, emo_gv))
+            basecolor, roughness, metallic, emit = profiling.bwd_mark(
+                "brdf", *self._brdf_heads(params, m.pts, brdf_feat,
+                                          grid_vals=(brdf_gv, emo_gv)))
             emit_m = geo.segment_to_rays(m, emit)
         normal = _unit_normal(exp_grad).detach()
 
@@ -433,11 +525,19 @@ class ESRNeRF(VoxurfF):
             if glob:
                 sel, slots, lts_valid, chosen = self._select_global(
                     draws.select, m.pad, pos, sh)
-                scatter = draws.scatter.index_select(0, slots)
+            elif h_rows is not None:
+                sel, lts_valid = self.select_keyed(draws.select, pos, m.pad,
+                                                   self.n_lts_points)
             else:
                 sel, lts_valid = self._select_lts_points(draws.select, m,
                                                          self.n_lts_points)
-                scatter = draws.scatter
+            with profiling.span("lts/draws"):
+                if h_rows is not None:
+                    scatter = self.keyed_scatter(h_rows.index_select(0, sel))
+                elif glob:
+                    scatter = draws.scatter.index_select(0, slots)
+                else:
+                    scatter = draws.scatter
             rs = rid.index_select(0, sel)
             take = lambda x: x.index_select(0, sel)
             lts = self.light_transport_segment(
@@ -447,11 +547,15 @@ class ESRNeRF(VoxurfF):
                 uncert_masks.index_select(0, rs), lts_valid, s_val,
                 budget_pts=self.n_lts_points if glob else None,
             )
+            marked = ("off", "emo", "off_hat", "emo_hat")
+            lts.update(zip(marked, profiling.bwd_mark(
+                "segment", *(lts[k] for k in marked))))
 
         with profiling.span("lts/brdf"):
             # eps-perturbed re-evaluations for the smoothness terms
             _, exp_grad_eps = self.sample_sdf_expgrad(
                 params["sdf"], m.pts + draws.normal_eps * normal_eps)
+            exp_grad_eps = profiling.bwd_mark("brdf", exp_grad_eps)
             pts_e = m.pts + draws.emit_eps * emit_eps
             sdf_e = geo.sample_grid(params["sdf"], pts_e)[..., 0]
             brdf_feat_e = self._brdf_feat(params, pts_e, sdf_e,

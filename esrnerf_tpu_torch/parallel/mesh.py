@@ -14,15 +14,18 @@ Adam step.
 Two step layouts (``system.parallel``):
 
 - ``shard_map`` (the default): each rank's step is the one-device step on
-  its block. Random draws are the rank's own (:meth:`ShardHelpers.
-  fold_generator`), the LTS surface points are split between the ranks
-  (``num_ltspts / n`` a rank) and the march counters are the maximum of
-  the ranks' own fractions. The result depends on the world size.
+  its block. Random draws are the rank's own (the LTS family's keyed by
+  their rays' places in the global batch, a generator's by
+  :meth:`ShardHelpers.fold_generator`), the LTS surface points are split
+  between the ranks (``num_ltspts / n`` a rank) and the march counters
+  are the maximum of the ranks' own fractions. The result depends on the
+  world size.
 - ``gspmd``: the step at world n equals the step at world 1 on the same
-  global batch and generator, up to summation order, as JAX's ``jit`` of
-  the one-device step body does. The draws are world 1's, each rank
-  taking its rows by their place in world 1's order
-  (:meth:`ShardHelpers.global_positions`); the LTS surface points are
+  global batch and key, up to summation order, as JAX's ``jit`` of the
+  one-device step body does. The draws are world 1's: keyed by the global
+  ray, or explicit draws of which each rank takes its rows by their place
+  in world 1's order (:meth:`ShardHelpers.global_positions`); the LTS
+  surface points are
   world 1's lowest scores over all ranks (:meth:`ShardHelpers.
   select_lowest`); the counters are global fractions. The march budgets
   stay per rank at the block's share, so a rank whose block overflows its
